@@ -6,22 +6,32 @@ Phases (any failure exits non-zero; the last line of standard output is
 ``{"ok": true, "device": {...}}`` only when every phase passed):
 
 1. Environment and build: the card's name and power limit, the torch and
-   CUDA versions, and the build of the three CUDA kernels from
-   ``radixjoin_tpu_torch/csrc`` with nvcc for sm_90a (seconds, ptxas'
-   register and shared-memory report).
+   CUDA versions, and the build of the CUDA kernels from
+   ``radixjoin_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per source,
+   all at once (seconds, ptxas' register and shared-memory report).
 2. Kernel checks: each kernel against its plain PyTorch version on the card,
-   on the same inputs at main-path shapes, bit-equal, with the median time
-   of warm runs of both.
+   on the same inputs, bit-equal, with the median time of warm runs of
+   both: the join kernels at main-path shapes, the gather-experiment
+   kernels at the tools' default shapes (n = 2^24, window 2^20, one-hot
+   window 2048), with the route (shared memory or L2) each case took.
 3. Main path: the synthetic IMDB at ``--scale`` (default 0.1, the
-   repository bench's scale) and ``--seed``, and two JOB-shaped plans
-   (radixjoin_tpu_torch/harness/job_shapes.py): S1 from eager pages
-   (device page decode), S2 lazily (dense upload). Each runs cold and warm
-   through ``execute`` on the card, with the kernels' launch counters set
-   to 0 just before and read just after, then once through
-   ``build_context("cpu")``, where the plain versions serve as the oracle.
-   Checked: equal per-join totals, equal row multisets, the root
-   cardinality against a numpy count over the base tables, the join
-   strategies covered, and a launch count above 0 for every kernel.
+   repository bench's scale) and ``--seed``, three JOB-shaped plans
+   (radixjoin_tpu_torch/harness/job_shapes.py) — S1 from eager pages
+   (device page decode), S2 lazily (dense upload), S3 with a combined pad
+   of 2^23 at the root (the merge join) — and F1, a join on FP64 keys
+   (merge join). Each runs cold and warm through ``execute`` on the card,
+   with the kernels' launch counters set to 0 just before and read just
+   after, then once through ``build_context("cpu")``, where the plain
+   versions serve as the oracle. Checked: equal per-join totals, equal
+   row multisets, the root cardinality against a numpy count over the
+   base tables, the join strategies covered (merge included), and a
+   launch count above 0 for every kernel of the path.
+4. Device-time path: with the counters set to 0 just before, every case
+   of ``harness/devtime.py`` at ``--devtime-size`` rows (default 2^22),
+   printed with its ms and share of the HBM figure, then the kernel cases
+   of the three gather-experiment tools (``radixjoin_tpu_torch/tools``)
+   at their default shapes; the counters are read just after, and every
+   kernel of the path must have launched.
 
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
@@ -101,6 +111,9 @@ def check_kernels(torch, kernels, dev, seed: int):
     def case(name, label, fn_kernel, fn_plain, representative):
         got, want = _flat(fn_kernel()), _flat(fn_plain())
         torch.cuda.synchronize()
+        route = getattr(getattr(kernels, name), "last_route", None)
+        if route:
+            label = f"{label} route={route}"
         err = max(_max_abs_err(torch, g, w) for g, w in zip(got, want))
         if len(got) != len(want) or err != 0.0:
             _fail(f"{name} [{label}] disagrees with its plain version "
@@ -161,6 +174,44 @@ def check_kernels(torch, kernels, dev, seed: int):
              lambda i=idx: kernels.paged_window_gather(body, i),
              lambda i=idx: kernels.paged_window_gather_plain(body, i),
              representative=(rows == 1920))
+
+    # the gather-experiment kernels at the tools' default shapes
+    n = 1 << 24
+
+    def tool_inputs(w, shape=None, hi=2 ** 31):
+        table = torch.randint(-hi, hi, (w,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        idx = torch.randint(0, w, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        return (table if shape is None else table.view(shape)), idx
+
+    for body, w, shape in (("take", 1 << 20, None),
+                           ("take_unique", 1 << 20, None),
+                           ("take", 1 << 14, None),
+                           ("ta_lanes", 1024, (8, 128))):
+        t, i = tool_inputs(w, shape)
+        case("pallas_gather", f"{body} w={w} n={n}",
+             lambda t=t, i=i, b=body: kernels.pallas_gather(t, i, body=b),
+             lambda t=t, i=i, b=body: kernels.pallas_gather_plain(t, i, b),
+             representative=(body == "take" and w == 1 << 20))
+    # values below 2^24 in magnitude: the one-hot product's exact range
+    t, i = tool_inputs(2048, hi=2 ** 24)
+    case("onehot_gather", f"w=2048 n={n}",
+         lambda: kernels.onehot_gather(t, i),
+         lambda: kernels.onehot_gather_plain(t, i), representative=True)
+    for w in (1 << 20, 1 << 14):
+        t, i = tool_inputs(w)
+        case("gather_pallas_vmem", f"w={w} n={n} blk=4096",
+             lambda t=t, i=i: kernels.gather_pallas_vmem(t, i),
+             lambda t=t, i=i: kernels.gather_pallas_vmem_plain(t, i),
+             representative=(w == 1 << 20))
+    for body, w in (("rows", 1 << 20), ("lanes", 1024), ("2level", 1 << 20),
+                    ("2level", 1 << 16), ("2level", 1 << 14), ("sub", 1024)):
+        t, i = tool_inputs(w, shape=(-1, 128))
+        case("mk_gather", f"{body} w={w} n={n}",
+             lambda t=t, i=i, b=body: kernels.mk_gather(t, i, body=b),
+             lambda t=t, i=i, b=body: kernels.mk_gather_plain(t, i, b),
+             representative=(body == "2level" and w == 1 << 20))
     return records
 
 
@@ -201,8 +252,25 @@ def _same_rows(np, a, b) -> bool:
 
 def _expected_root_rows(np, tables, name):
     """Root cardinality from numpy counts over the base tables: every FK in
-    these unfiltered plans matches, so the root is the per-movie product of
+    these unfiltered plans matches, so the root is the per-key product of
     the two sides' row counts."""
+    if name == "S3":
+        ci, rt = tables["cast_info"], tables["role_type"]
+        role, ids = ci.columns[6], ci.columns[0]
+        ok = (role.valid & ids.valid
+              & np.isin(role.values, rt.columns[0].values[rt.columns[0].valid]))
+        per_id = np.bincount(ids.values[ok]).astype(np.int64)
+        return int((per_id * per_id).sum())
+    if name == "F1":
+        keys = []
+        for t in (tables["f64_left"], tables["f64_right"]):
+            k = t.columns[0]
+            keys.append(k.values[k.valid] + 0.0)  # -0.0 joins 0.0
+        u, ca = np.unique(keys[0], return_counts=True)
+        ub, cb = np.unique(keys[1], return_counts=True)
+        _common, ia, ib = np.intersect1d(u, ub, return_indices=True)
+        return int((ca[ia].astype(np.int64) * cb[ib]).sum())
+
     def per_movie(table, col):
         t = tables[table]
         return np.bincount(t.columns[col].values[t.columns[col].valid],
@@ -220,13 +288,18 @@ def run_main_path(torch, np, rt, kernels, args):
     from radixjoin_tpu_torch.harness.datagen import SyntheticIMDB
 
     t0 = time.perf_counter()
-    names = sorted(set(job_shapes.S1_TABLES + job_shapes.S2_TABLES) | {"title"})
+    names = sorted(set(job_shapes.S1_TABLES + job_shapes.S2_TABLES
+                       + job_shapes.S3_TABLES) | {"title"})
     tables = SyntheticIMDB(scale=args.scale, seed=args.seed).generate(names)
     _log(f"datagen scale={args.scale} seed={args.seed}: "
          f"{time.perf_counter() - t0:.2f} s, rows "
          + ", ".join(f"{n}={tables[n].num_rows}" for n in names))
+    tables.update(job_shapes.f64_tables(seed=args.seed))
 
-    shapes = (("S1", job_shapes.s1_plan, False), ("S2", job_shapes.s2_plan, True))
+    shapes = (("S1", job_shapes.s1_plan, False),
+              ("S2", job_shapes.s2_plan, True),
+              ("S3", job_shapes.s3_plan, True),
+              ("F1", job_shapes.f64_plan, True))
     plans = {}
     for name, build, lazy in shapes:
         t1 = time.perf_counter()
@@ -257,7 +330,11 @@ def run_main_path(torch, np, rt, kernels, args):
     strategies = set()
     cpu = rt.build_context("cpu")
     for name, build, lazy in shapes:
-        strategies |= set(plans[name]._fused_struct_cache[1].strategies().values())
+        plan_strategies = set(
+            plans[name]._fused_struct_cache[1].strategies().values())
+        if name in ("S3", "F1") and "merge" not in plan_strategies:
+            _fail(f"{name} did not take the merge join: {plan_strategies}")
+        strategies |= plan_strategies
         t1 = time.perf_counter()
         oracle_plan = build(tables, lazy=lazy)
         oracle = rt.execute(oracle_plan, cpu)
@@ -278,13 +355,68 @@ def run_main_path(torch, np, rt, kernels, args):
 
     _log(f"strategies: {sorted(strategies)}")
     need = ({"unique_scatter"}, {"csr", "csr_swapped"},
-            {"dev_csr", "dev_csr_swapped"})
+            {"dev_csr", "dev_csr_swapped"}, {"merge"})
     if not all(strategies & s for s in need):
         _fail(f"strategies {sorted(strategies)} miss one of {need}")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS):
         _fail(f"a kernel of the path was not launched: {launches}")
     for name, _build, _lazy in shapes:
         profile_warm(torch, rt, plans[name], ctx, name)
+    return launches
+
+
+#: kernels the engine's main path launches (S1-S3, F1)
+MAIN_PATH_KERNELS = ("window_gather", "blocked_window_gather_multi",
+                     "paged_window_gather")
+#: kernels the device-time path launches (devtime cases, the three tools)
+DEVTIME_PATH_KERNELS = ("window_gather", "blocked_window_gather_multi",
+                        "pallas_gather", "gather_pallas_vmem", "mk_gather",
+                        "onehot_gather")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the device-time microbenchmark path
+# ---------------------------------------------------------------------------
+
+
+def run_devtime_path(torch, kernels, args):
+    """Every devtime case at ``args.devtime_size`` rows, then the kernel
+    cases of the three gather-experiment tools at their default shapes,
+    counted. Returns the launch counts of this path."""
+    from radixjoin_tpu_torch import hardware
+    from radixjoin_tpu_torch.harness import devtime
+    from radixjoin_tpu_torch.tools import (expt_gather2, expt_pallas,
+                                           expt_primitives)
+
+    dev = torch.device("cuda")
+    spec = hardware.detect(dev)
+    _log(f"devtime: {spec.name}, HBM {spec.hbm_gbps:.0f} GB/s (published), "
+         f"{spec.sm_count} SMs, L2 {spec.l2_bytes / 2**20:.0f} MiB, "
+         f"shared memory per block {spec.smem_per_block_bytes} B; "
+         f"n = {args.devtime_size:,}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _log(f"{'kernel':<26} {'rows':>12} {'dev_ms':>9} {'rows/s':>9} "
+         f"{'GB/s':>8} {'%roof':>7} {'timing':>6}")
+    for m in devtime.run(args.devtime_size, device=dev, spec=spec):
+        _log(m.row())
+    _log(f"devtime: all {len(devtime.CASES)} cases in "
+         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    failed = (
+        expt_pallas.main(["--cases", ",".join(expt_pallas.KERNEL_CASES)])
+        + expt_primitives.main(["--cases",
+                                ",".join(expt_primitives.KERNEL_CASES)])
+        + expt_gather2.main())
+    if failed:
+        _fail(f"tool cases failed: {failed}")
+    _log(f"tools: kernel cases in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    _log(f"device-time path kernel launches: {json.dumps(launches)}")
+    if not all(launches[k] > 0 for k in DEVTIME_PATH_KERNELS):
+        _fail(f"a kernel of the device-time path was not launched: "
+              f"{launches}")
     return launches
 
 
@@ -336,6 +468,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--devtime-size", type=int, default=1 << 22)
     args = ap.parse_args()
 
     import torch
@@ -357,7 +490,7 @@ def main() -> None:
          f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     kernels.build()
     _log(f"kernel build: {kernels.BUILD_INFO['seconds']:.1f} s -> "
-         f"{kernels.BUILD_INFO['path']}")
+         f"{', '.join(kernels.BUILD_INFO['paths'])}")
     for line in str(kernels.BUILD_INFO["log"]).splitlines():
         if "Used" in line or "Compiling entry" in line:
             _log(f"  ptxas: {line.strip()}")
@@ -368,6 +501,8 @@ def main() -> None:
 
     # phase 3: the main path, counted
     launches = run_main_path(torch, np, rt, kernels, args)
+    # phase 4: the device-time path, counted
+    dt_launches = run_devtime_path(torch, kernels, args)
 
     meta = {
         "window_gather": ("csrc/window_gather.cu",
@@ -377,14 +512,22 @@ def main() -> None:
             "radixjoin_tpu/ops/pallas_kernels.py:340"),
         "paged_window_gather": ("csrc/paged_window_gather.cu",
                                 "radixjoin_tpu/ops/pallas_kernels.py:231"),
+        "pallas_gather": ("csrc/resident_gather.cu",
+                          "tools/expt_pallas.py:39"),
+        "onehot_gather": ("csrc/onehot_gather.cu",
+                          "tools/expt_pallas.py:108"),
+        "gather_pallas_vmem": ("csrc/resident_gather.cu",
+                               "tools/expt_primitives.py:94"),
+        "mk_gather": ("csrc/resident_gather.cu", "tools/expt_gather2.py:52"),
     }
     out = []
     for name, (src, replaces) in meta.items():
         rec = records[name]
+        counted = launches if name in MAIN_PATH_KERNELS else dt_launches
         out.append({
             "name": name, "route": "cuda",
             "source": f"radixjoin_tpu_torch/{src}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "launches": counted[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         })
         _log(f"{name}: ms and plain_ms below are at {rec['shape']}")

@@ -8,7 +8,9 @@
 //
 // What bounds it on the card: device-memory bytes. Every output row costs
 // one 4-byte index read, shared by all K tables, and K element writes; the
-// tables themselves are at most 4096 entries and stay on chip.
+// tables themselves are small (the engine routes at most 4096 entries here,
+// the device-time harness up to WINDOW_GATHER_TABLE_MAX = 16384) and stay
+// on chip.
 // The design follows from that: each block copies the K tables into shared
 // memory once (coalesced), then walks a grid-stride loop in which a thread
 // reads one index, reads K shared-memory words and writes K coalesced

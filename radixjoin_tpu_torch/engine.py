@@ -26,8 +26,8 @@ Join semantics replicated from the reference:
 
 ``execute`` runs the fused whole-plan executor (plan/fused.py). What that
 path meets but this port does not carry yet raises ``NotImplementedError``
-naming its ROADMAP.md item: the merge join, the host spill for inputs
-larger than half the card's memory, and the stepwise fallback executor.
+naming its ROADMAP.md item: the host spill for inputs larger than half
+the card's memory, and the stepwise fallback executor.
 """
 
 from __future__ import annotations

@@ -11,7 +11,11 @@ the sort-free formulations below (plus the sort-based unique fallback):
 * :func:`join_csr_impl` — general join against a CSR index (counts,
   exclusive starts, row ids grouped by key) over the key window;
 * :func:`join_dev_csr_impl` — the CSR index built on the device
-  (histogram + cumsum + one stable sort of the indexed side).
+  (histogram + cumsum + one stable sort of the indexed side);
+* :func:`join_merge_impl` / :func:`join_merge_full_impl` — the merge join:
+  one sort of build ++ probe with segment scans, payload planes carried
+  through the sort's permutation; for FP64 keys, key windows too sparse
+  for a CSR index, and combined pads of at least 2^23 rows.
 
 NULL-key semantics: rows with ``valid == False`` never match (inner join
 drops NULL keys, reference src/execute.cpp:62-83).
@@ -34,7 +38,7 @@ the monotone owner stream go through the hand-written kernels of
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -229,3 +233,169 @@ def join_dev_csr_impl(build_keys, build_valid, probe_keys, probe_valid,
     grouped = torch.sort(off_b, stable=True).indices.to(torch.int32)
     return join_csr_impl(counts_w, starts_w, grouped, probe_keys,
                          probe_valid, base, s_pad)
+
+
+def _merge_order(build_keys, build_valid, probe_keys, probe_valid):
+    """The merge join's sort of build ++ probe by (invalid, key, side, id):
+    ``(perm, ids_s, side_s, valid_s, runkey)`` where ``perm`` is the sort
+    permutation (int64), ``ids_s``/``side_s``/``valid_s`` the original row
+    id (int32), side (1 = probe) and validity per sorted slot, and
+    ``runkey`` one or two tensors whose change marks a new equal-key run.
+
+    Every sorted element is unique (side and row id are part of the key),
+    so the order is the JAX package's ``lax.sort`` order exactly. 32-bit
+    keys pack into one int64 sort key; 64-bit keys sort two keys with two
+    stable passes, minor key first."""
+    bp, pp = build_keys.shape[0], probe_keys.shape[0]
+    n = bp + pp
+    dev = build_keys.device
+    keys = torch.cat([build_keys, probe_keys])
+    valid = torch.cat([build_valid, probe_valid])
+    ids = torch.cat([torch.arange(bp, device=dev),
+                     torch.arange(pp, device=dev)])
+    invalid64 = (~valid).to(torch.int64)
+    side64 = torch.cat([torch.zeros(bp, dtype=torch.int64, device=dev),
+                        torch.ones(pp, dtype=torch.int64, device=dev)])
+    if keys.dtype == torch.int32 and n < (1 << 29):
+        # [62] invalid | [30..61] key (sign-biased) | [29] side | [0..28] id
+        ukey = (keys.to(torch.int64) & 0xFFFFFFFF) ^ (1 << 31)
+        packed = (invalid64 << 62) | (ukey << 30) | (side64 << 29) | ids
+        packed_s, perm = torch.sort(packed)
+        ids_s = (packed_s & ((1 << 29) - 1)).to(torch.int32)
+        side_s = (packed_s >> 29) & 1
+        valid_s = ((packed_s >> 62) & 1) == 0
+        # run identity = key bits + invalid bit in one compare
+        runkey = (packed_s >> 30,)
+    else:
+        keys64 = keys.to(torch.int64)
+        maxk = torch.iinfo(keys.dtype).max
+        keysat = torch.where(valid, keys64, torch.full_like(keys64, maxk))
+        # [33] invalid | [32] side | [0..31] id
+        packed = (invalid64 << 33) | (side64 << 32) | ids
+        o1 = torch.sort(packed).indices
+        o2 = torch.sort(keysat[o1], stable=True).indices
+        perm = o1[o2]
+        keysat_s, packed_s = keysat[perm], packed[perm]
+        ids_s = (packed_s & 0xFFFFFFFF).to(torch.int32)
+        side_s = (packed_s >> 32) & 1
+        valid_s = ((packed_s >> 33) & 1) == 0
+        # a valid key equal to the saturation value must not merge with
+        # the invalid tail: the invalid bit is part of the run identity
+        runkey = (keysat_s, (packed_s >> 33) & 1)
+    return perm, ids_s, side_s, valid_s, runkey
+
+
+def join_merge_impl(build_keys, build_valid, probe_keys, probe_valid,
+                    carry: Sequence[torch.Tensor] = ()):
+    """Single-sort merge join count (port of the JAX package's
+    ``join_merge_impl``): ONE sort of build ++ probe by (invalid, key,
+    side), builds before probes within each equal-key run, then segment
+    scans. For a probe element at sorted position ``pos`` with run start
+    ``rs``, its count is the builds in its run,
+    ``(pos - rs) - (probes in [rs, pos))``, and its matches sit at sorted
+    positions ``[rs, rs + count)``.
+
+    ``carry``: combined-length (B+P) planes of any dtype moved into sorted
+    order with the sort's permutation (one gather each); when non-empty
+    the return gains a 6th element, the tuple of sorted planes.
+
+    Returns ``(ids_sorted, run_start, counts, offsets, total)``: int32
+    (B+P,) original row id, run start, matches per sorted slot (0 for
+    build and invalid slots) and its exclusive prefix sum, and the int64
+    total — the JAX function's dtypes."""
+    perm, ids_s, side_s, valid_s, runkey = _merge_order(
+        build_keys, build_valid, probe_keys, probe_valid)
+    n = ids_s.shape[0]
+    dev = ids_s.device
+    pos = _iota(n, dev)
+    is_start = pos == 0
+    for rk in runkey:
+        is_start = is_start | torch.cat([rk[:1], rk[:-1]]).ne(rk)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    run_start = torch.cummax(torch.where(is_start, pos, zero), 0).values
+    is_probe = side_s.to(torch.int32)
+    probe_excl = torch.cumsum(is_probe, 0, dtype=torch.int32) - is_probe
+    # probes before each run start, broadcast across the run (monotone, so
+    # a running max of start-masked values is exact)
+    probe_at_start = torch.cummax(
+        torch.where(is_start, probe_excl, zero), 0).values
+    builds_in_run = (pos - run_start) - (probe_excl - probe_at_start)
+    counts = torch.where((is_probe == 1) & valid_s, builds_in_run, zero)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    total = counts.sum(dtype=torch.int64)
+    if carry:
+        carried = tuple(c.index_select(0, perm) for c in carry)
+        return ids_s, run_start, counts, offsets, total, carried
+    return ids_s, run_start, counts, offsets, total
+
+
+def _merge_owner_recovery(offsets, total, s_pad: int):
+    """Owner recovery over sorted positions: ``(owner, j, live)`` with
+    ``owner[j]`` the sorted slot owning output j (monotone, int32), ``j``
+    the output positions and ``live = j < total``."""
+    total32 = total.to(torch.int32).reshape(1)
+    emits = torch.diff(offsets, append=total32) > 0
+    owner = _owner_recovery(offsets, emits, s_pad)
+    j = _iota(s_pad, offsets.device)
+    return owner, j, j < total32
+
+
+def join_expand_merge_impl(ids_sorted, run_start, offsets, total,
+                           s_pad: int):
+    """Expansion for the merge join: output slot j -> ``(bidx, pidx,
+    live)`` in the ``s_pad`` bucket, dead rows zeroed. The owner-indexed
+    lookups share the monotone ``owner`` stream in one blocked-window pass,
+    and the ``bpos`` stream is block-windowed too (run starts advance no
+    faster than output slots)."""
+    n = offsets.shape[0]
+    owner, j, live = _merge_owner_recovery(offsets, total, s_pad)
+    offs_g, rs_g, pidx = gather_expand_multi(
+        [offsets, run_start, ids_sorted], owner, windowed=True)
+    bpos = (rs_g + (j - offs_g)).clamp(0, n - 1)
+    bidx = gather_expand(ids_sorted, bpos, windowed=True)
+    zero = torch.zeros((), dtype=torch.int32, device=offsets.device)
+    return torch.where(live, bidx, zero), torch.where(live, pidx, zero), live
+
+
+def join_merge_full_impl(build_keys, build_valid, probe_keys, probe_valid,
+                         s_pad: int,
+                         build_cols: Sequence[Tuple[torch.Tensor,
+                                                    torch.Tensor]],
+                         probe_cols: Sequence[Tuple[torch.Tensor,
+                                                    torch.Tensor]]):
+    """Merge join end to end: count, expansion and late materialization.
+    Every payload column's data and validity plane rides the join's sort
+    (``carry``), in its own dtype; after the sort everything is
+    position-local: probe payloads ride the monotone ``owner`` stream with
+    the expansion's own offsets/run-start lookups, build payloads the
+    block-windowed ``bpos`` stream, both through the blocked-window kernel.
+
+    Returns ``(out_build, out_probe, live, total)`` with outputs as
+    ``(data, valid & live)`` in the ``s_pad`` bucket — the multiset of
+    gathering by ``(bidx, pidx)``."""
+    bp, pp = build_keys.shape[0], probe_keys.shape[0]
+    b_planes = [p for d, v in build_cols for p in (d, v)]
+    p_planes = [p for d, v in probe_cols for p in (d, v)]
+    # combined-length planes: the other side's half is never read (build
+    # planes only at build slots via bpos, probe planes at probe slots via
+    # owner)
+    carry = [torch.cat([p, p.new_zeros(pp)]) for p in b_planes] + [
+        torch.cat([p.new_zeros(bp), p]) for p in p_planes]
+    _ids, run_start, _c, offsets, total, *rest = join_merge_impl(
+        build_keys, build_valid, probe_keys, probe_valid, carry)
+    carried = rest[0] if rest else ()
+    n = offsets.shape[0]
+    owner, j, live = _merge_owner_recovery(offsets, total, s_pad)
+    nb = len(b_planes)
+    got = gather_expand_multi([offsets, run_start] + list(carried[nb:]),
+                              owner, windowed=True)
+    offs_g, rs_g, p_got = got[0], got[1], got[2:]
+    bpos = (rs_g + (j - offs_g)).clamp(0, n - 1)
+    b_got = (gather_expand_multi(list(carried[:nb]), bpos, windowed=True)
+             if nb else [])
+
+    def pairs(planes):
+        return [(planes[i], planes[i + 1] & live)
+                for i in range(0, len(planes), 2)]
+
+    return pairs(b_got), pairs(p_got), live, total

@@ -15,16 +15,15 @@ Joins lower exactly like the reference's fast paths:
   key column, on either side;
 * ``dev_csr`` / ``dev_csr_swapped`` — both children intermediate: a CSR
   index built on the device over the key's origin base-column window.
-  VARCHAR keys join this way too, over a unified dictionary id space.
+  VARCHAR keys join this way too, over a unified dictionary id space;
+* ``merge`` — the single-sort merge join with sort-carried payloads, for
+  FP64 keys, integer key windows too sparse for a CSR index, and general
+  joins whose combined pad (build + probe) reaches ``BIG_MERGE_PAD``.
 
 Join output cardinalities are data-dependent, so every general join writes
 into a static pow2 bucket; the run returns exact per-join totals, the
 engine checks ``total <= bucket`` and re-runs overflowing plans with exact
 buckets — results are always exact, never silently truncated.
-
-The merge join (FP64 keys, sparse key windows, or combined pads of at
-least 2^23 rows) is not ported yet: a plan that needs it raises
-``NotImplementedError`` (ROADMAP.md, "Merge path").
 """
 
 from __future__ import annotations
@@ -40,14 +39,9 @@ from ..ops import keynorm
 from .ir import Plan, ScanNode
 from . import executor as _ex
 
-#: combined pad (build + probe) from which the reference reroutes general
-#: joins to the merge path (radixjoin_tpu/plan/fused.py _big_merge)
+#: combined pad (build + probe) from which general joins take the merge
+#: path, as in the reference (radixjoin_tpu/plan/fused.py _big_merge)
 BIG_MERGE_PAD = 1 << 23
-
-MERGE_NOT_PORTED = (
-    "the merge join is not ported yet (ROADMAP.md, 'Merge path'): join "
-    "node {node} has {why}"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +62,7 @@ class _JoinSpec:
     # output attr -> (side 0=left/1=right, column index in that child)
     out_cols: Tuple[Tuple[int, int], ...]
     #: "empty" | "unique_scatter" | "unique_sort" | "csr" | "csr_swapped"
-    #: | "dev_csr" | "dev_csr_swapped"
+    #: | "dev_csr" | "dev_csr_swapped" | "merge"
     strategy: str
     r_pad: int = 0  # key window (unique_scatter / dev_csr*)
     aux_id: int = -1  # index into aux_args (scatter/csr operands)
@@ -151,7 +145,7 @@ class FusedPlan:
             bchild = j.left if j.build_left else j.right
             pchild = j.right if j.build_left else j.left
 
-            strategy, r_pad, aux_id = None, 0, -1
+            strategy, r_pad, aux_id = "merge", 0, -1
             if key_dtype is None:
                 strategy = "empty"
             elif key_dtype is DataType.VARCHAR:
@@ -187,10 +181,10 @@ class FusedPlan:
                 else:
                     strategy = "unique_sort"
             elif pads[bchild] + pads[pchild] >= BIG_MERGE_PAD:
-                raise NotImplementedError(MERGE_NOT_PORTED.format(
-                    node=idx, why=f"combined pad {pads[bchild] + pads[pchild]}"
-                    f" >= {BIG_MERGE_PAD}",
-                ))
+                # huge pads: the CSR paths' window and payload lookups run
+                # at probe/output size, the merge join is one sort with
+                # sort-carried payloads; the strategy stays "merge"
+                pass
             else:
                 csr = _ex._general_csr_index(
                     plan, j, battr, pattr, pads[bchild], pads[pchild],
@@ -210,11 +204,8 @@ class FusedPlan:
                         strategy = "dev_csr_swapped" if swapped else "dev_csr"
                         aux_id = len(self.aux_args)
                         self.aux_args.append((base,))
-            if strategy is None:
-                raise NotImplementedError(MERGE_NOT_PORTED.format(
-                    node=idx, why=f"a {key_dtype.name} key with no "
-                    "economic integer key window",
-                ))
+                # otherwise (FP64 key, or no economic integer key window)
+                # the strategy stays "merge"
 
             compact_pad = 0
             if strategy in ("unique_scatter", "unique_sort"):
@@ -346,7 +337,7 @@ def run(structure: FusedPlan):
                 counts_w, starts_w, grouped, kb, vb, base, spec.out_pad
             )
             monotone = bidx
-        else:  # "dev_csr" / "dev_csr_swapped"
+        elif spec.strategy in ("dev_csr", "dev_csr_swapped"):
             aux = aux_args[spec.aux_id]
             if spec.key_dtype is DataType.VARCHAR:
                 # dictionary ids -> unified id space, then join as ints
@@ -365,6 +356,25 @@ def run(structure: FusedPlan):
                 pidx, bidx, live, total = join_ops.join_dev_csr_impl(
                     kp, vp, kb, vb, base, spec.r_pad, spec.out_pad
                 )
+        else:  # "merge": payload planes ride the join's single sort
+            need: Dict[Tuple[int, int], Tuple] = {}
+            b_keys, p_keys = [], []
+            for side, ci in spec.out_cols:
+                key = (side, ci)
+                if key in need:
+                    continue
+                need[key] = (left if side == 0 else right)[ci]
+                on_build = (side == 0) == spec.build_left
+                (b_keys if on_build else p_keys).append(key)
+            out_b, out_p, _live, total = join_ops.join_merge_full_impl(
+                kb, vb, kp, vp, spec.out_pad,
+                [need[k] for k in b_keys], [need[k] for k in p_keys],
+            )
+            totals.append(total)
+            got = dict(zip(b_keys, out_b))
+            got.update(zip(p_keys, out_p))
+            tables[idx] = [got[key] for key in spec.out_cols]
+            continue
         totals.append(total)
 
         lidx = bidx if spec.build_left else pidx

@@ -6,7 +6,7 @@ interpret mode; the port on the CPU with its kernels' plain versions.
 
 Covers the semantics cases of tests/test_join_semantics.py (rebuilt here),
 inputs that arrive as eager aligned pages (device page decode in both
-engines), and plans whose reference takes the not-yet-ported merge join.
+engines), and plans whose reference takes the merge join.
 """
 
 
@@ -49,18 +49,11 @@ def ref_strategies(ref_plan):
 def check_parity(ref_plan, repeat: bool = True):
     """Run ``ref_plan`` in both engines and hold the port to the reference:
     equal row multisets, equal per-join totals, equal join strategies.
-    A plan whose reference structure takes the merge join must raise
-    ``NotImplementedError`` in the port (the merge path is not ported).
     With ``repeat`` the port runs the plan a second time, on the
-    cardinality feedback of the first run. Returns the port plan, or None
-    for a merge plan."""
+    cardinality feedback of the first run. Returns the port plan."""
     port_plan = convert.from_reference(ref_plan)
     ref_result = ref.execute(ref_plan, ref.build_context())
     strategies = ref_strategies(ref_plan)
-    if "merge" in strategies.values():
-        with pytest.raises(NotImplementedError, match="merge"):
-            port.execute(port_plan, port.build_context("cpu"))
-        return None
     want = ref_rows(ref_result)
     for _run in range(2 if repeat else 1):
         result = port.execute(port_plan, port.build_context("cpu"))

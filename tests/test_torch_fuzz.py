@@ -1,11 +1,10 @@
 """Randomized plans (tests/test_fuzz_plans.py::gen_plan) through the port
 and the JAX package: every key dtype, NULL keys and payloads, duplicate
 keys, empty inputs, type-mismatched keys, both build sides, multi-join
-trees and random projections. A plan whose reference structure takes the
-merge join (FP64 keys, sparse key windows) must raise
-``NotImplementedError`` in the port, which does not carry that path yet.
-Seeds 0-9 cover the csr, csr_swapped, dev_csr, dev_csr_swapped, empty and
-merge lowerings between them.
+trees and random projections; plans whose reference takes the merge
+join (FP64 keys, sparse key windows) run it in the port too. Seeds 0-9
+cover the csr, csr_swapped, dev_csr, dev_csr_swapped, empty and merge
+lowerings between them.
 """
 
 import numpy as np

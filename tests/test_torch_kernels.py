@@ -122,8 +122,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         kernels.window_gather([t], torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError):
-        kernels.window_gather([torch.zeros(5000, dtype=torch.int32)],
-                              torch.zeros(4, dtype=torch.int32))
+        kernels.window_gather(
+            [torch.zeros(kernels.WINDOW_GATHER_TABLE_MAX + 1,
+                         dtype=torch.int32)],
+            torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
         kernels.blocked_window_gather_multi(
             [t[::2]], torch.zeros(4, dtype=torch.int32))
@@ -143,5 +145,6 @@ def test_cpu_path_counts_no_launches():
                           torch.zeros(3, dtype=torch.int32))
     assert kernels.launch_counts() == {
         "window_gather": 0, "blocked_window_gather_multi": 0,
-        "paged_window_gather": 0,
+        "paged_window_gather": 0, "pallas_gather": 0,
+        "gather_pallas_vmem": 0, "mk_gather": 0, "onehot_gather": 0,
     }
