@@ -11,9 +11,21 @@ Phases (any failure exits non-zero; the last line of standard output is
    all at once (seconds, ptxas' register and shared-memory report).
 2. Kernel checks: each kernel against its plain PyTorch version on the card,
    on the same inputs, bit-equal, with the median time of warm runs of
-   both: the join kernels at main-path shapes, the gather-experiment
-   kernels at the tools' default shapes (n = 2^24, window 2^20, one-hot
-   window 2048), with the route (shared memory or L2) each case took.
+   both (per call, over brackets of five calls back to back): the join
+   kernels at main-path shapes, the gather-experiment kernels at the
+   tools' default shapes (n = 2^24, window 2^20, one-hot window 2048),
+   with the route (shared memory or L2) each case took.
+   Beside them, for each case: its bound, the bytes the function must
+   move (each input read once, each output written once) over the
+   published 3,350 GB/s — every one of the seven is a gather, a function
+   with no arithmetic, so bytes bound them all — and ``library_ms``, the
+   time of the bare PyTorch call that gives the same values
+   (``index_select`` or ``gather`` on an index widened beforehand) — a
+   yardstick only, the package never calls it. The two join gathers also
+   run with mixed element sizes in one call, unaligned table and index
+   views, ragged lengths and tables past the shared-memory budget, and
+   ``blocked_window_gather_multi`` also as the join calls it, without
+   its flags (``with_ok=False``).
 3. Main path: the synthetic IMDB at ``--scale`` (default 0.1, the
    repository bench's scale) and ``--seed``, three JOB-shaped plans
    (radixjoin_tpu_torch/harness/job_shapes.py) — S1 from eager pages
@@ -35,7 +47,8 @@ Phases (any failure exits non-zero; the last line of standard output is
 
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
-"max_abs_err", "ms", "plain_ms"}, ...]}``.
+"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+"pct_of_bound"}, ...]}``.
 """
 
 from __future__ import annotations
@@ -57,21 +70,37 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _timed(torch, fn, runs: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``runs`` warm calls, each bracketed by CUDA
-    events and a synchronize."""
+#: published device-memory rate of the H100 SXM (NVIDIA's data sheet), bytes/s
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _timed(torch, fn, runs: int = 10, inner: int = 5,
+           warmup: int = 3) -> float:
+    """Median milliseconds per call over ``runs`` brackets of ``inner``
+    back-to-back warm calls between two CUDA events. Back to back, the
+    host's work for a call (allocating outputs, the launch) overlaps the
+    card's work for the call before, so a call that keeps the card busy
+    longer than the host is timed on the card alone. A call of more than
+    5 ms (the one-hot kernel's float64 plain version) is timed alone, over
+    half the runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 5e-3:
+        runs, inner = runs // 2, 1
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -108,7 +137,12 @@ def check_kernels(torch, kernels, dev, seed: int):
 
     records = {}
 
-    def case(name, label, fn_kernel, fn_plain, representative):
+    def case(name, label, fn_kernel, fn_plain, representative=False,
+             fn_library=None, nbytes=0):
+        """One kernel case: bit-equality with the plain version, then the
+        times. ``fn_library`` is the bare PyTorch call of the same values
+        (checked equal too), ``nbytes`` the least bytes the function moves
+        on these inputs; a case with ``nbytes`` prints its bound."""
         got, want = _flat(fn_kernel()), _flat(fn_plain())
         torch.cuda.synchronize()
         route = getattr(getattr(kernels, name), "last_route", None)
@@ -120,26 +154,103 @@ def check_kernels(torch, kernels, dev, seed: int):
                   f"(max abs err {err})")
         ms = _timed(torch, fn_kernel)
         plain_ms = _timed(torch, fn_plain)
-        _log(f"kernel {name} [{label}]: bit-equal, kernel {ms:.4f} ms, "
-             f"plain {plain_ms:.4f} ms")
+        line = (f"kernel {name} [{label}]: bit-equal, kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+        library_ms = None
+        if fn_library is not None:
+            lib = _flat(fn_library())
+            if not all(torch.equal(g, w) for g, w in zip(got, lib)):
+                _fail(f"{name} [{label}]: the library call disagrees")
+            library_ms = _timed(torch, fn_library)
+            line += f", library {library_ms:.4f} ms"
         rec = records.setdefault(name, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if nbytes:
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            line += (f"; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                     f"kernel at {100.0 * bound_ms / ms:.1f}% of it")
         if representative:
-            rec.update(ms=ms, plain_ms=plain_ms, shape=label)
+            rec.update(ms=ms, plain_ms=plain_ms, shape=label,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_bytes=nbytes,
+                       pct_of_bound=100.0 * bound_ms / ms)
+        _log(line)
+        return ms
+
+    def esize(tables):
+        return sum(t.element_size() for t in tables)
+
+    def wg_case(label, tabs, idx, representative=False):
+        i64 = idx.long()
+        n, w = idx.shape[0], tabs[0].shape[0]
+        case("window_gather", label,
+             lambda: kernels.window_gather(tabs, idx),
+             lambda: kernels.window_gather_plain(tabs, idx),
+             representative,
+             fn_library=lambda: [t.index_select(0, i64) for t in tabs],
+             nbytes=n * 4 + (n + w) * esize(tabs))
+
+    def bwg_case(label, tabs, idx, representative=False, with_ok=True):
+        # the library call gives the values only; ``ok`` has no library call.
+        # ``with_ok=False`` is how the join calls the kernel: no flags are
+        # written, and the bound drops their 4 bytes per row
+        i64 = idx.long()
+        n = idx.shape[0]
+        distinct = torch.unique(idx)
+        touched = sum(int((distinct < t.shape[0]).sum()) * t.element_size()
+                      for t in tabs)
+        in_range = all(int(idx.max()) < t.shape[0] for t in tabs)
+        library = ((lambda: [t.index_select(0, i64) for t in tabs])
+                   if in_range else None)
+        if with_ok:
+            case("blocked_window_gather_multi", label,
+                 lambda: kernels.blocked_window_gather_multi(tabs, idx),
+                 lambda: kernels.blocked_window_gather_multi_plain(tabs, idx),
+                 representative, fn_library=library,
+                 nbytes=n * (4 + esize(tabs) + 4) + touched)
+            return
+        if kernels.blocked_window_gather_multi(tabs, idx,
+                                               with_ok=False)[1] is not None:
+            _fail("blocked_window_gather_multi: with_ok=False returned flags")
+        case("blocked_window_gather_multi", f"{label} with_ok=False",
+             lambda: kernels.blocked_window_gather_multi(tabs, idx,
+                                                         with_ok=False)[0],
+             lambda: kernels.blocked_window_gather_multi_plain(tabs, idx)[0],
+             fn_library=library, nbytes=n * (4 + esize(tabs)) + touched)
 
     n = 4 << 20
     for w in (128, 4096):
-        for k in (1, 8):
+        for k in (1, 4, 8):
             for dtype in (torch.int32, torch.int64):
                 tabs = [rand_table(w, dtype) for _ in range(k)]
                 idx = torch.randint(0, w, (n,), generator=gen, device=dev,
                                     dtype=torch.int32)
-                label = f"W={w} K={k} {str(dtype)[6:]} N={n}"
-                case("window_gather", label,
-                     lambda t=tabs, i=idx: kernels.window_gather(t, i),
-                     lambda t=tabs, i=idx: kernels.window_gather_plain(t, i),
-                     representative=(w == 4096 and k == 8
-                                     and dtype == torch.int64))
+                wg_case(f"W={w} K={k} {str(dtype)[6:]} N={n}", tabs, idx,
+                        representative=(w == 4096 and k == 8
+                                        and dtype == torch.int64))
+    # one call with mixed element sizes; table and index views that are not
+    # 16-byte aligned; ragged lengths; tables past the shared-memory budget
+    w = 4096
+    pool32 = rand_table(w + 8, torch.int32)
+    pool64 = rand_table(w + 8, torch.int64)
+    poolb = torch.rand(w + 8, generator=gen, device=dev) < 0.5
+    mixed = [pool32[:w], pool64[:w], poolb[:w]]
+    views = [pool32[1:w + 1], pool64[1:w + 1], poolb[3:w + 3], pool32[2:w + 2]]
+    idx = torch.randint(0, w, (n + 4,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    wg_case(f"W={w} mixed int32+int64+bool N={n}", mixed, idx[:n])
+    wg_case(f"W={w} unaligned views N={n + 3}", views, idx[1:])
+    for m in (1, 1023, 1025):
+        wg_case(f"W={w} mixed N={m}", mixed, idx[:m])
+    big_w = kernels.WINDOW_GATHER_TABLE_MAX
+    tabs = [rand_table(big_w, torch.int64) for _ in range(3)]
+    tabs.append(torch.rand(big_w, generator=gen, device=dev) < 0.5)
+    wg_case(f"W={big_w} 3 int64 + bool (past the budget) N={n}", tabs,
+            torch.randint(0, big_w, (n,), generator=gen, device=dev,
+                          dtype=torch.int32))
+    tabs = [rand_table(w, torch.int64) for _ in range(20)]
+    wg_case(f"W={w} K=20 int64 (more than one launch holds) N={1 << 20}",
+            tabs, idx[:1 << 20])
 
     n = 8 << 20
     src_len = 4 << 20
@@ -153,11 +264,26 @@ def check_kernels(torch, kernels, dev, seed: int):
     miss[pick] = torch.randint(0, src_len // 2, (n // 100,), generator=gen,
                                device=dev, dtype=torch.int32)
     for label, idx in (("monotone fan-out", mono), ("1% random misses", miss)):
-        case("blocked_window_gather_multi",
-             f"{label} N={n} tables<={src_len}",
-             lambda i=idx: kernels.blocked_window_gather_multi(tabs, i),
-             lambda i=idx: kernels.blocked_window_gather_multi_plain(tabs, i),
-             representative=(idx is mono))
+        bwg_case(f"{label} N={n} tables<={src_len}", tabs, idx,
+                 representative=(idx is mono))
+        bwg_case(f"{label} N={n} tables<={src_len}", tabs, idx, with_ok=False)
+    # ragged lengths, unaligned views, indices past the shorter table's end
+    # (the zero pad), a sparse stream (windows of 2048 entries all used),
+    # and more tables than one launch holds
+    half = 4 << 20
+    for m in (1, 1023, 1025, half + 3):
+        bwg_case(f"monotone N={m}", tabs, mono[:half + 3][:m].contiguous())
+    views = [tabs[0][1:], tabs[1][1:], tabs[2][3:], tabs[3][5:]]
+    bwg_case(f"unaligned views N={half + 3}", views, mono[1:half + 4])
+    bwg_case(f"unaligned views N={half + 3}", views, mono[1:half + 4],
+             with_ok=False)
+    bwg_case("monotone N=1025", tabs, mono[:1025].contiguous(), with_ok=False)
+    wide = torch.sort(torch.randint(0, src_len, (half,), generator=gen,
+                                    device=dev, dtype=torch.int32)).values
+    bwg_case(f"sparse stream past the short table N={half}", tabs, wide)
+    many = [rand_table(src_len // 4, torch.int64) for _ in range(20)]
+    bwg_case(f"K=20 int64 N={1 << 20}", many,
+             (mono[:1 << 20] // 2).contiguous())
 
     # the decode's own index shapes: word db + rank for INT32 rows (1920 a
     # page), words 2 + 2*rank and 3 + 2*rank for INT64 rows (960 a page),
@@ -173,7 +299,9 @@ def check_kernels(torch, kernels, dev, seed: int):
         case("paged_window_gather", f"{npages} pages {label}",
              lambda i=idx: kernels.paged_window_gather(body, i),
              lambda i=idx: kernels.paged_window_gather_plain(body, i),
-             representative=(rows == 1920))
+             representative=(rows == 1920),
+             fn_library=lambda i=idx.long(): body.gather(1, i),
+             nbytes=4 * (body.numel() + 2 * idx.numel()))
 
     # the gather-experiment kernels at the tools' default shapes
     n = 1 << 24
@@ -185,6 +313,11 @@ def check_kernels(torch, kernels, dev, seed: int):
                             dtype=torch.int32)
         return (table if shape is None else table.view(shape)), idx
 
+    def table_at(table, idx):
+        """The library call of the bodies that are ``table[idx]``."""
+        flat, i64 = table.reshape(-1), idx.long()
+        return lambda: flat.index_select(0, i64)
+
     for body, w, shape in (("take", 1 << 20, None),
                            ("take_unique", 1 << 20, None),
                            ("take", 1 << 14, None),
@@ -193,25 +326,38 @@ def check_kernels(torch, kernels, dev, seed: int):
         case("pallas_gather", f"{body} w={w} n={n}",
              lambda t=t, i=i, b=body: kernels.pallas_gather(t, i, body=b),
              lambda t=t, i=i, b=body: kernels.pallas_gather_plain(t, i, b),
-             representative=(body == "take" and w == 1 << 20))
+             representative=(body == "take" and w == 1 << 20),
+             fn_library=table_at(t, i) if shape is None else None,
+             nbytes=4 * (2 * n + w))
     # values below 2^24 in magnitude: the one-hot product's exact range
     t, i = tool_inputs(2048, hi=2 ** 24)
-    case("onehot_gather", f"w=2048 n={n}",
-         lambda: kernels.onehot_gather(t, i),
-         lambda: kernels.onehot_gather_plain(t, i), representative=True)
+    ms = case("onehot_gather", f"w=2048 n={n}",
+              lambda: kernels.onehot_gather(t, i),
+              lambda: kernels.onehot_gather_plain(t, i), representative=True,
+              fn_library=table_at(t, i), nbytes=4 * (2 * n + 2048))
+    # not a bound of the function (``table[idx]`` needs no arithmetic): what
+    # this design's multiply-adds would take at the published 67 TFLOP/s of
+    # FP32 outside the tensor cores
+    design_ops_ms = 2 * n * 2048 / 67e12 * 1e3
+    _log(f"kernel onehot_gather: design_ops_ms {design_ops_ms:.4f} "
+         f"({2 * n * 2048 / 1e9:.1f} G operations of the one-hot product), "
+         f"kernel at {100.0 * design_ops_ms / ms:.1f}% of that")
     for w in (1 << 20, 1 << 14):
         t, i = tool_inputs(w)
         case("gather_pallas_vmem", f"w={w} n={n} blk=4096",
              lambda t=t, i=i: kernels.gather_pallas_vmem(t, i),
              lambda t=t, i=i: kernels.gather_pallas_vmem_plain(t, i),
-             representative=(w == 1 << 20))
+             representative=(w == 1 << 20), fn_library=table_at(t, i),
+             nbytes=4 * (2 * n + w))
     for body, w in (("rows", 1 << 20), ("lanes", 1024), ("2level", 1 << 20),
                     ("2level", 1 << 16), ("2level", 1 << 14), ("sub", 1024)):
         t, i = tool_inputs(w, shape=(-1, 128))
         case("mk_gather", f"{body} w={w} n={n}",
              lambda t=t, i=i, b=body: kernels.mk_gather(t, i, body=b),
              lambda t=t, i=i, b=body: kernels.mk_gather_plain(t, i, b),
-             representative=(body == "2level" and w == 1 << 20))
+             representative=(body == "2level" and w == 1 << 20),
+             fn_library=table_at(t, i) if body == "2level" else None,
+             nbytes=4 * (2 * n + w))
     return records
 
 
@@ -462,6 +608,12 @@ def profile_warm(torch, rt, plan, ctx, name: str) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
              f"{e.key[:90]}")
+    # the hand kernels at this plan's own call shapes
+    for e in events:
+        if "bwg_kernel" in e.key or "gather_kernel" in e.key:
+            _log(f"{name} warm hand kernel: "
+                 f"{e.self_device_time_total / 1e3:.4f} ms over {e.count} "
+                 f"launches of {e.key[:60]}")
 
 
 def main() -> None:
@@ -498,11 +650,11 @@ def main() -> None:
     # phase 2: kernels against their plain versions
     dev = torch.device("cuda")
     records = check_kernels(torch, kernels, dev, args.seed)
-
     # phase 3: the main path, counted
     launches = run_main_path(torch, np, rt, kernels, args)
     # phase 4: the device-time path, counted
     dt_launches = run_devtime_path(torch, kernels, args)
+    _log(f"card: {smi}")
 
     meta = {
         "window_gather": ("csrc/window_gather.cu",
@@ -529,9 +681,13 @@ def main() -> None:
             "source": f"radixjoin_tpu_torch/{src}", "replaces": replaces,
             "launches": counted[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+            "library_ms": rec["library_ms"],
+            "pct_of_bound": rec["pct_of_bound"],
         })
-        _log(f"{name}: ms and plain_ms below are at {rec['shape']}")
-    _log(f"card: {smi}")
+        _log(f"{name}: the times below are at {rec['shape']}; bound from "
+             f"{rec['bound_bytes']} bytes at {HBM_BYTES_PER_S / 1e9:.0f} "
+             f"GB/s (published)")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

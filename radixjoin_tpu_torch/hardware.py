@@ -69,11 +69,17 @@ def _catalog_entry(device_name: str) -> Optional[ChipSpec]:
 
 
 def detect(device=None) -> ChipSpec:
-    """The spec of ``device`` (default: the current CUDA card, or the CPU
-    where there is none). A CUDA card outside the catalog keeps its own
-    properties with its bandwidth unknown (NaN)."""
+    """The spec of ``device``. The default is the current CUDA card, and
+    raises where there is none; ``"cpu"`` gives the CPU entry on request. A
+    CUDA card outside the catalog keeps its own properties with its
+    bandwidth unknown (NaN)."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "hardware.detect(): CUDA is not available; pass 'cpu' for "
+                "the CPU entry"
+            )
+        device = "cuda"
     device = torch.device(device)
     if device.type != "cuda":
         return CHIPS["cpu"]

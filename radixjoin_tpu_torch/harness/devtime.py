@@ -229,8 +229,15 @@ def _measure(name, rows, ms, min_bytes, spec, reliable=True,
 
 
 def _default_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when it is None: a measurement times
+    the card unless the caller asks for ``"cpu"``, and raises without one."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card (torch.cuda.is_available() is false): pass "
+                "device='cpu' to run on the CPU"
+            )
+        device = "cuda"
     return torch.device(device)
 
 

@@ -69,7 +69,10 @@ def gather_expand_multi(tables, pos: torch.Tensor,
     if n0 <= kernels.WINDOW_GATHER_MAX:
         return kernels.window_gather(tables, pos)
     if windowed:
-        vals, _ok = kernels.blocked_window_gather_multi(tables, pos)
+        # the kernel patches its window misses itself: the flags are not
+        # needed, so it need not write them
+        vals, _ok = kernels.blocked_window_gather_multi(tables, pos,
+                                                        with_ok=False)
         return vals
     return [t.index_select(0, pos) for t in tables]
 

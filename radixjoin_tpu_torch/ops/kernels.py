@@ -55,9 +55,14 @@ BWG_BLK = 1024
 #: window alignment unit; each block covers two units
 BWG_WIN = 1024
 
-_MAX_TABLES = 8  # RJT_MAX_TABLES in csrc/gather_common.cuh
-#: shared memory one launch may stage; more tables split into more launches
-_SMEM_CAP = 96 * 1024
+#: tables one launch takes (RJT_MAX_TABLES in csrc/gather_common.cuh: the
+#: descriptors travel as one by-value kernel argument); a longer list is
+#: split into several launches over the same index stream
+_MAX_TABLES = 16
+#: shared memory a block leaves free of staged tables: the static shared
+#: memory of ``window_gather_kernel`` (its 8-byte copy barrier), rounded up
+#: to the staging alignment
+_SMEM_RESERVE = 16
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -70,10 +75,10 @@ _NVCC_FLAGS = [
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry points and their argument types (each defined in one source)
 _SIGNATURES = {
-    "rjt_window_gather": [_I32, _I32, _I32, _VP, _VP, _I32, _VP, _I64,
-                          _I32, _I32, _VP],
-    "rjt_blocked_window_gather": [_I32, _I32, _I32, _VP, _VP, _VP, _VP,
-                                  _I64, _I64, _VP, _VP],
+    "rjt_window_gather": [_I32, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _VP,
+                          _I64, _I32, _VP],
+    "rjt_blocked_window_gather": [_I32, _I32, _VP, _VP, _VP, _VP, _VP, _I64,
+                                  _I64, _VP, _I32, _VP],
     "rjt_paged_window_gather": [_I32, _VP, _VP, _VP, _I64, _I32, _I32,
                                 _I32, _VP],
     "rjt_resident_gather": [_I32, _I32, _I32, _VP, _I64, _VP, _VP, _I64,
@@ -203,39 +208,50 @@ def _cuda_or_raise(device: torch.device, name: str) -> None:
         raise ValueError(f"{name}: tensors must be on CPU or CUDA, not {device}")
 
 
-def _launch_groups(tables, staged: int) -> List[Tuple[int, List[int]]]:
-    """Split table positions into launches: one element size per launch,
-    at most ``_MAX_TABLES`` tables and ``_SMEM_CAP`` bytes of shared memory
-    for their ``staged`` entries each. Returns
-    ``[(elem_bytes, [table positions]), ...]``."""
-    by_size: Dict[int, List[int]] = {}
-    for i, t in enumerate(tables):
-        by_size.setdefault(t.element_size(), []).append(i)
-    out = []
-    for eb, members in sorted(by_size.items()):
-        per = max(1, min(_MAX_TABLES, _SMEM_CAP // (staged * eb)))
-        for s in range(0, len(members), per):
-            out.append((eb, members[s:s + per]))
-    return out
+def _launch_groups(count: int) -> List[List[int]]:
+    """Table positions ``0 .. count - 1`` split, in order, into launches of
+    at most ``_MAX_TABLES`` tables each, whatever their element sizes."""
+    return [list(range(s, min(s + _MAX_TABLES, count)))
+            for s in range(0, count, _MAX_TABLES)]
+
+
+def _staging_plan(elem_sizes: Sequence[int], w: int,
+                  budget: int) -> Tuple[List[int], int]:
+    """Where :func:`window_gather` stages each of one launch's tables (of
+    ``w`` entries and the given element sizes) in ``budget`` bytes of shared
+    memory: ``(offsets, bytes used)``, every offset a multiple of 16. Tables
+    are placed in order while they fit; one that does not gets offset -1
+    and is read from device memory by the same launch."""
+    offsets, used = [], 0
+    for eb in elem_sizes:
+        start = -(-used // 16) * 16
+        if start + w * eb <= budget:
+            offsets.append(start)
+            used = start + w * eb
+        else:
+            offsets.append(-1)
+    return offsets, used
 
 
 def _ptr_array(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * _MAX_TABLES)(*[t.data_ptr() for t in tensors])
 
 
-def _raw(t: torch.Tensor) -> torch.Tensor:
-    """Byte-for-byte view the kernels copy (bool travels as uint8)."""
-    return t.view(torch.uint8) if t.dtype == torch.bool else t
+def _int_array(values) -> ctypes.Array:
+    return (ctypes.c_int * _MAX_TABLES)(*values)
 
 
-_SM_COUNT: Dict[int, int] = {}
+#: per device index: (SM count, opt-in shared memory per block)
+_DEVICE_LIMITS: Dict[int, Tuple[int, int]] = {}
 
 
-def _sm_count(device: torch.device) -> int:
+def _device_limits(device: torch.device) -> Tuple[int, int]:
     i = _index(device)
-    if i not in _SM_COUNT:
-        _SM_COUNT[i] = torch.cuda.get_device_properties(i).multi_processor_count
-    return _SM_COUNT[i]
+    if i not in _DEVICE_LIMITS:
+        props = torch.cuda.get_device_properties(i)
+        _DEVICE_LIMITS[i] = (props.multi_processor_count,
+                             props.shared_memory_per_block_optin)
+    return _DEVICE_LIMITS[i]
 
 
 def _stream(device: torch.device) -> int:
@@ -264,9 +280,11 @@ def window_gather(tables, idx: torch.Tensor) -> List[torch.Tensor]:
     caller has clamped to ``[0, w)``. Any 1-, 4- or 8-byte dtype (int32,
     int64 and bool columns gather natively).
 
-    Staging limit: one launch holds at most 8 tables and 96 KB of them in
-    shared memory (three int64 tables of 4096 entries); longer lists are
-    split into several launches over the same index stream."""
+    One launch serves up to 16 tables of any mix of element sizes (a longer
+    list is split). Its blocks hold as many of the tables in shared memory
+    as the card's opt-in limit allows (227 KB on Hopper: seven int64 tables
+    of 4096 entries) and read the rest from device memory in the same
+    launch (see :func:`_staging_plan`)."""
     tables = list(tables)
     name = "window_gather"
     _check_index(idx, 1, name)
@@ -283,15 +301,17 @@ def window_gather(tables, idx: torch.Tensor) -> List[torch.Tensor]:
     outs = [torch.empty(n, dtype=t.dtype, device=t.device) for t in tables]
     if n == 0:
         return outs
-    block = 1024
-    grid = max(1, min(-(-n // (block * 4)), 2 * _sm_count(idx.device)))
     dev = _index(idx.device)
-    for eb, members in _launch_groups(tables, w):
-        ins = _ptr_array([_raw(tables[i]) for i in members])
-        dst = _ptr_array([_raw(outs[i]) for i in members])
+    sm_count, smem_optin = _device_limits(idx.device)
+    budget = smem_optin - _SMEM_RESERVE
+    for members in _launch_groups(len(tables)):
+        elems = [tables[i].element_size() for i in members]
+        offsets, smem_bytes = _staging_plan(elems, w, budget)
         rc = lib.rjt_window_gather(
-            dev, eb, len(members), ins, dst, w, idx.data_ptr(), n,
-            grid, block, _stream(idx.device),
+            dev, len(members), _ptr_array([tables[i] for i in members]),
+            _ptr_array([outs[i] for i in members]), _int_array(elems),
+            _int_array(offsets), smem_bytes, w, idx.data_ptr(), n,
+            sm_count, _stream(idx.device),
         )
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
@@ -338,7 +358,8 @@ def blocked_window_gather_multi_plain(tables, idx: torch.Tensor):
     return vals, ok
 
 
-def blocked_window_gather_multi(tables, idx: torch.Tensor):
+def blocked_window_gather_multi(tables, idx: torch.Tensor,
+                                with_ok: bool = True):
     """``(vals, ok)``: ``vals[t][j] = tables[t][idx[j]]`` for every row and
     ``ok[j] = 1`` where ``idx[j]`` fell in its block's 2048-entry window
     (the TPU kernel's flag, bit for bit). ``idx`` is int32, clamped to
@@ -347,34 +368,40 @@ def blocked_window_gather_multi(tables, idx: torch.Tensor):
     kernel, so no host sync and no second pass is needed. Tables may
     differ in length and dtype (1, 4 or 8 bytes).
 
-    Staging limit: one launch holds at most 8 tables and 96 KB of windows
-    (six int64 tables); longer lists are split into several launches over
-    the same index stream, and only the first writes ``ok``."""
+    ``with_ok=False`` returns ``(vals, None)`` and the kernel writes no
+    flags: for callers that drop them.
+
+    One launch serves up to 16 tables of any mix of element sizes; a longer
+    list is split into several launches over the same index stream, and
+    only the first writes ``ok``."""
     tables = list(tables)
     name = "blocked_window_gather_multi"
     _check_index(idx, 1, name)
     _check_tables(tables, idx.device, name)
     if idx.device.type == "cpu":
-        return blocked_window_gather_multi_plain(tables, idx)
+        vals, ok = blocked_window_gather_multi_plain(tables, idx)
+        return vals, (ok if with_ok else None)
     _cuda_or_raise(idx.device, name)
     lib = build()
     n = idx.shape[0]
     outs = [torch.empty(n, dtype=t.dtype, device=t.device) for t in tables]
-    ok = torch.empty(n, dtype=torch.int32, device=idx.device)
+    ok = (torch.empty(n, dtype=torch.int32, device=idx.device)
+          if with_ok else None)
     if n == 0:
         return outs, ok
     kmax = -(-max(t.shape[0] for t in tables) // BWG_WIN)
     dev = _index(idx.device)
-    ok_ptr = ok.data_ptr()
-    for eb, members in _launch_groups(tables, 2 * BWG_WIN):
-        ins = _ptr_array([_raw(tables[i]) for i in members])
-        dst = _ptr_array([_raw(outs[i]) for i in members])
-        lens = (ctypes.c_longlong * _MAX_TABLES)(
-            *[tables[i].shape[0] for i in members]
-        )
+    ok_ptr = ok.data_ptr() if with_ok else None
+    sm_count, _smem = _device_limits(idx.device)
+    for members in _launch_groups(len(tables)):
         rc = lib.rjt_blocked_window_gather(
-            dev, eb, len(members), ins, dst, lens, idx.data_ptr(), n,
-            kmax, ok_ptr, _stream(idx.device),
+            dev, len(members), _ptr_array([tables[i] for i in members]),
+            _ptr_array([outs[i] for i in members]),
+            (ctypes.c_longlong * _MAX_TABLES)(
+                *[tables[i].shape[0] for i in members]),
+            _int_array([tables[i].element_size() for i in members]),
+            idx.data_ptr(), n, kmax, ok_ptr, sm_count,
+            _stream(idx.device),
         )
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
@@ -461,11 +488,6 @@ def resident_gather_plain(table: torch.Tensor, idx: torch.Tensor, mode: str,
     return flat.index_select(0, pos)
 
 
-def _smem_optin(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(
-        _index(device)).shared_memory_per_block_optin
-
-
 def _resident_gather(fn, table: torch.Tensor, idx: torch.Tensor, mode: str,
                      two_d: bool, blk: int) -> torch.Tensor:
     name = fn.__name__
@@ -491,14 +513,15 @@ def _resident_gather(fn, table: torch.Tensor, idx: torch.Tensor, mode: str,
         return resident_gather_plain(table, idx, mode, blk)
     _cuda_or_raise(idx.device, name)
     lib = build()
-    use_smem = 4 * w <= _smem_optin(idx.device)
+    sm_count, smem_optin = _device_limits(idx.device)
+    use_smem = 4 * w <= smem_optin
     out = torch.empty(n, dtype=torch.int32, device=idx.device)
     fn.last_route = "smem" if use_smem else "l2"
     if n == 0:
         return out
     block = 1024
     per_sm = 2 if not use_smem or 4 * w <= 100 * 1024 else 1
-    grid = max(1, min(-(-n // block), per_sm * _sm_count(idx.device)))
+    grid = max(1, min(-(-n // block), per_sm * sm_count))
     rc = lib.rjt_resident_gather(
         _index(idx.device), _MAPS[mode], int(use_smem), table.data_ptr(), w,
         idx.data_ptr(), out.data_ptr(), n, blk, grid, block,
@@ -601,7 +624,8 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return onehot_gather_plain(table, idx)
     _cuda_or_raise(idx.device, name)
     w = table.shape[0]
-    if 4 * w > _smem_optin(idx.device):
+    sm_count, smem_optin = _device_limits(idx.device)
+    if 4 * w > smem_optin:
         raise ValueError(f"{name}: a {w}-entry table does not fit shared "
                          "memory")
     lib = build()
@@ -609,7 +633,7 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int32, device=idx.device)
     if n == 0:
         return out
-    grid = max(1, min(-(-n // 2048), 8 * _sm_count(idx.device)))
+    grid = max(1, min(-(-n // 2048), 8 * sm_count))
     rc = lib.rjt_onehot_gather(
         _index(idx.device), table.data_ptr(), w, idx.data_ptr(),
         out.data_ptr(), n, grid, _stream(idx.device),

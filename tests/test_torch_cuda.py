@@ -65,6 +65,123 @@ def test_cuda_kernels_match_plain(cuda_device):
                                        "paged_window_gather"))
 
 
+def _rand(gen, dev, n, dtype):
+    if dtype == torch.bool:
+        return torch.rand(n, generator=gen, device=dev) < 0.5
+    top = 1 << (31 if dtype == torch.int32 else 62)
+    return torch.randint(-top, top, (n,), generator=gen, device=dev,
+                         dtype=dtype)
+
+
+def _assert_equal_lists(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1025, (1 << 20) + 3])
+def test_window_gather_mixed_sizes_one_launch(cuda_device, n):
+    """int32, int64 and bool tables in one call: one launch, bit-equal to
+    the plain version, for ragged lengths, and for table and index views
+    that are not 16-byte aligned."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    w = 4096
+    pools = [_rand(gen, cuda_device, w + 8, d)
+             for d in (torch.int32, torch.int64, torch.bool, torch.int32)]
+    idx = torch.randint(0, w, (n + 4,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    for tabs, i in (([p[:w] for p in pools[:3]], idx[:n]),
+                    ([pools[0][1:w + 1], pools[1][1:w + 1],
+                      pools[2][3:w + 3], pools[3][2:w + 2]], idx[1:n + 1])):
+        kernels.reset_launch_counts()
+        got = kernels.window_gather(tabs, i)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["window_gather"] == 1
+        _assert_equal_lists(got, kernels.window_gather_plain(tabs, i))
+
+
+@pytest.mark.cuda
+def test_window_gather_past_the_shared_memory_budget(cuda_device):
+    """Tables that do not fit a block's shared memory are read from device
+    memory by the same launch; more tables than one launch's descriptor
+    holds take a second one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    n = (1 << 20) + 1
+    for w, count, launches in ((4096, 8, 1),
+                               (kernels.WINDOW_GATHER_TABLE_MAX, 3, 1),
+                               (4096, 20, 2)):
+        tabs = [_rand(gen, cuda_device, w, torch.int64) for _ in range(count)]
+        tabs.append(_rand(gen, cuda_device, w, torch.bool))
+        if count == 20:
+            tabs.pop()
+        idx = torch.randint(0, w, (n,), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+        offs, _used = kernels._staging_plan(
+            [t.element_size() for t in tabs[:kernels._MAX_TABLES]], w,
+            kernels._device_limits(cuda_device)[1] - kernels._SMEM_RESERVE)
+        assert -1 in offs  # some table of the first launch is not staged
+        kernels.reset_launch_counts()
+        got = kernels.window_gather(tabs, idx)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["window_gather"] == launches
+        _assert_equal_lists(got, kernels.window_gather_plain(tabs, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1025, (1 << 21) + 3])
+@pytest.mark.parametrize("with_ok", [True, False])
+def test_blocked_window_gather_mixed_sizes_one_launch(cuda_device, n,
+                                                      with_ok):
+    """Mixed element sizes and lengths in one call: one launch, bit-equal
+    to the plain version with and without the flags, for ragged lengths,
+    unaligned views, misses and indices past the shorter table's end."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    dev = cuda_device
+    src = 1 << 20
+    pools = [_rand(gen, dev, src + 8, torch.int32),
+             _rand(gen, dev, src + 8, torch.int64),
+             _rand(gen, dev, src // 2 + 8, torch.int32),
+             _rand(gen, dev, src + 8, torch.bool)]
+    mono = torch.sort(torch.randint(0, src, (n + 4,), generator=gen,
+                                    device=dev, dtype=torch.int32)).values
+    mono[::997] = 0  # misses
+    for tabs, idx in (([pools[0][:src], pools[1][:src],
+                        pools[2][:src // 2], pools[3][:src]], mono[:n]),
+                      ([pools[0][1:src + 1], pools[1][1:src + 1],
+                        pools[2][3:src // 2 + 3], pools[3][5:src + 5]],
+                       mono[1:n + 1])):
+        kernels.reset_launch_counts()
+        got, ok = kernels.blocked_window_gather_multi(tabs, idx,
+                                                      with_ok=with_ok)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["blocked_window_gather_multi"] == 1
+        want, want_ok = kernels.blocked_window_gather_multi_plain(tabs, idx)
+        _assert_equal_lists(got, want)
+        if with_ok:
+            assert torch.equal(ok, want_ok)
+        else:
+            assert ok is None
+
+
+@pytest.mark.cuda
+def test_blocked_window_gather_more_tables_than_one_launch(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    src, n = 1 << 18, (1 << 20) + 5
+    tabs = [_rand(gen, cuda_device, src, d)
+            for d in (torch.int64, torch.bool) * 10]
+    idx = torch.sort(torch.randint(0, src, (n,), generator=gen,
+                                   device=cuda_device,
+                                   dtype=torch.int32)).values
+    kernels.reset_launch_counts()
+    got, ok = kernels.blocked_window_gather_multi(tabs, idx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["blocked_window_gather_multi"] == 2
+    want, want_ok = kernels.blocked_window_gather_multi_plain(tabs, idx)
+    _assert_equal_lists(got, want)
+    assert torch.equal(ok, want_ok)
+
+
 def _columns(result):
     host = result.to_host()
     return [c.objects() if c.dtype.is_varchar

@@ -1,8 +1,9 @@
 """The port's device-time harness (radixjoin_tpu_torch/harness/devtime.py)
 and hardware model on the CPU: every case builds and runs one step at a
-small size, the slope and single-call timers run, ``hardware.detect()``
-gives the CPU entry, and the measurement entry points refuse to run
-without a card. Device times themselves come only from the card."""
+small size, the slope and single-call timers run, ``hardware.detect("cpu")``
+gives the CPU entry, and the measurement entry points, ``detect()``,
+``devtime.run()`` and every case refuse to run without a card unless
+``"cpu"`` is asked for. Device times themselves come only from the card."""
 
 import math
 
@@ -31,7 +32,11 @@ def test_case_builds_and_runs_one_step(name):
 def test_detect_gives_the_cpu_entry():
     assert hardware.detect("cpu") is hardware.CHIPS["cpu"]
     if not torch.cuda.is_available():
-        assert hardware.detect() is hardware.CHIPS["cpu"]
+        # no device means the card: nothing falls back to the CPU unasked
+        with pytest.raises(RuntimeError):
+            hardware.detect()
+        with pytest.raises(RuntimeError):
+            devtime.run(N, reps=1, cases=["copy"])
 
 
 def test_catalog_matches_h100_names():
@@ -74,6 +79,28 @@ def test_tool_mains_return_their_failed_cases(monkeypatch):
         ("g_lanes", expt_gather2.build_lanes, 1 << 10),
         ("g_bad", expt_gather2.build_lanes, 100)])  # not an (8, 128) table
     assert expt_gather2.main(N) == ["g_bad"]
+
+
+@pytest.mark.parametrize("tool", ["devtime", "pallas", "primitives",
+                                  "gather2"])
+def test_cases_without_a_device_mean_the_card(tool):
+    """``device=None`` is the card in every case of the harness and the
+    tools: without one it raises, and ``"cpu"`` still runs on request."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the cases would run on it")
+    with pytest.raises(RuntimeError):
+        if tool == "devtime":
+            devtime.case_copy(N)
+        elif tool == "pallas":
+            expt_pallas.case_pallas_take(N, 4096)
+        elif tool == "primitives":
+            expt_primitives.case_gather_1d(N, 4096)
+        else:
+            expt_gather2.build_lanes(N, 1024, 2048)
+    if tool == "devtime":
+        with pytest.raises(RuntimeError):
+            devtime.measure_floor_ms(reps=1)
+        assert devtime.case_copy(N, "cpu")[2] == N
 
 
 def test_measurement_entry_points_need_a_card():

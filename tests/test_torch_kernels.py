@@ -105,6 +105,110 @@ def test_blocked_window_past_short_table_reads_zero():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
 
 
+def _mixed_tables(rng, lens):
+    """int32, int64 and bool tables of the given lengths, each with the
+    int32 planes the Pallas kernels take for it: an int64 table travels as
+    its lo and hi words, a bool table as 0 / 1 (the JAX callers' split)."""
+    i32 = _rand_i32(rng, lens[0])
+    i64 = rng.integers(-(1 << 62), 1 << 62, lens[1])
+    flag = rng.random(lens[2]) < 0.5
+    planes = [i32, (i64 & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+              (i64 >> 32).astype(np.int32), flag.astype(np.int32)]
+    return [i32, i64, flag], planes
+
+
+def _from_planes(planes):
+    """The gathered planes of :func:`_mixed_tables` back as three tables."""
+    p32, lo, hi, flag = (np.asarray(p) for p in planes)
+    i64 = (hi.astype(np.int64) << 32) | lo.view(np.uint32).astype(np.int64)
+    return [p32, i64, flag != 0]
+
+
+def test_window_gather_mixed_sizes_match_pallas():
+    # one call with int32, int64 and bool tables: bit-equal (tolerance 0)
+    # to the Pallas kernel over the same tables as int32 planes
+    rng = np.random.default_rng(11)
+    w, n = 1000, 2500
+    tabs, planes = _mixed_tables(rng, (w, w, w))
+    idx = rng.integers(0, w, n).astype(np.int32)
+    want = _from_planes(pk.window_gather([jnp.asarray(p) for p in planes],
+                                         jnp.asarray(idx)))
+    got = kernels.window_gather([torch.from_numpy(t) for t in tabs],
+                                torch.from_numpy(idx))
+    for g, w_, t in zip(got, want, tabs):
+        assert g.numpy().dtype == t.dtype
+        np.testing.assert_array_equal(g.numpy(), w_)
+
+
+@pytest.mark.parametrize("with_ok", [True, False])
+def test_blocked_window_gather_mixed_sizes_match_pallas(with_ok):
+    # mixed int32 / int64 / bool tables of different lengths in one call,
+    # with and without the flags: bit-equal (tolerance 0) to the Pallas
+    # kernel over the same tables as int32 planes
+    rng = np.random.default_rng(12)
+    lens = (20000, 9000, 20000)
+    tabs, planes = _mixed_tables(rng, lens)
+    n = 4097
+    base = np.repeat(np.arange(n), 2)[:n] // 2
+    idx = np.clip(base + rng.integers(0, 700, n), 0, lens[1] - 1)
+    idx[rng.integers(0, n, 20)] = rng.integers(0, lens[1], 20)  # misses
+    idx = idx.astype(np.int32)
+    want_planes, want_ok = pk.blocked_window_gather_multi(
+        [jnp.asarray(p) for p in planes], jnp.asarray(idx))
+    want = _from_planes(want_planes)
+    got, got_ok = kernels.blocked_window_gather_multi(
+        [torch.from_numpy(t) for t in tabs], torch.from_numpy(idx),
+        with_ok=with_ok)
+    want_ok = np.asarray(want_ok)
+    if with_ok:
+        np.testing.assert_array_equal(got_ok.numpy(), want_ok)
+    else:
+        assert got_ok is None
+    hit = want_ok != 0
+    assert 0 < hit.sum() < n
+    for t, g, w_ in zip(tabs, got, want):
+        g = g.numpy()
+        assert g.dtype == t.dtype
+        np.testing.assert_array_equal(g[hit], w_[hit])
+        np.testing.assert_array_equal(g[~hit], t[idx[~hit]])
+
+
+def test_blocked_window_gather_default_returns_the_flags():
+    t = torch.arange(5000, dtype=torch.int32)
+    idx = torch.arange(0, 3000, dtype=torch.int32)
+    vals, ok = kernels.blocked_window_gather_multi([t], idx)
+    assert ok.dtype == torch.int32 and ok.shape == idx.shape
+    assert torch.equal(vals[0], idx)
+
+
+def test_launch_groups_split_by_count_only():
+    # any mix of element sizes rides one launch: only the number of tables
+    # one launch's descriptor holds splits a call, in order
+    assert kernels._launch_groups(4) == [[0, 1, 2, 3]]
+    assert kernels._launch_groups(8) == [list(range(8))]
+    many = kernels._launch_groups(20)
+    assert [len(g) for g in many] == [kernels._MAX_TABLES,
+                                      20 - kernels._MAX_TABLES]
+    assert sum(many, []) == list(range(20))
+    assert kernels._launch_groups(0) == []
+
+
+def test_staging_plan_keeps_what_fits_and_leaves_the_rest_on_the_card():
+    budget = 227 * 1024 - kernels._SMEM_RESERVE
+    # 8 int64 tables of 4096 entries are 256 KiB: seven are staged, the
+    # eighth is read from device memory by the same launch
+    offs, used = kernels._staging_plan([8] * 8, 4096, budget)
+    assert offs == [i * 32768 for i in range(7)] + [-1]
+    assert used == 7 * 32768 <= budget
+    # mixed sizes: every offset 16-byte aligned, nothing overlaps
+    offs, used = kernels._staging_plan([4, 1, 8, 1], 100, budget)
+    assert offs == [0, 400, 512, 1312] and used == 1412
+    # a table that does not fit is skipped; a later, smaller one still fits
+    offs, used = kernels._staging_plan([8, 8, 1], 16384, 150 * 1024)
+    assert offs == [0, -1, 131072] and used == 131072 + 16384
+    assert kernels._staging_plan([8], 4096, 0) == ([-1], 0)
+
+
 @pytest.mark.parametrize("ro", [1920, 3840])
 def test_paged_window_gather_plain_matches_pallas(ro):
     rng = np.random.default_rng(ro)
