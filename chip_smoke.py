@@ -25,7 +25,14 @@ Phases (any failure exits non-zero; the last line of standard output is
    run with mixed element sizes in one call, unaligned table and index
    views, ragged lengths and tables past the shared-memory budget, and
    ``blocked_window_gather_multi`` also as the join calls it, without
-   its flags (``with_ok=False``).
+   its flags (``with_ok=False``). ``paged_window_gather`` also runs at a
+   deployment's size (the 18,878 pages of ``cast_info`` at scale 1.0).
+   The resident gathers also run with unaligned index and table views,
+   with one tile, and with sequential positions on the L2 route (the
+   index and output streams alone: what remains of the random-position
+   time is the price of the random 32-byte sectors); ``onehot_gather``
+   with indices outside the table, a table length that is no multiple of
+   4, a table view at an odd offset and values over its whole domain.
 3. Main path: the synthetic IMDB at ``--scale`` (default 0.1, the
    repository bench's scale) and ``--seed``, three JOB-shaped plans
    (radixjoin_tpu_torch/harness/job_shapes.py) — S1 from eager pages
@@ -303,6 +310,22 @@ def check_kernels(torch, kernels, dev, seed: int):
              fn_library=lambda i=idx.long(): body.gather(1, i),
              nbytes=4 * (body.numel() + 2 * idx.numel()))
 
+    # a deployment's size: the INT32 columns of cast_info at scale 1.0
+    # (36,244,344 rows, 1920 a page)
+    npages = -(-36_244_344 // 1920)
+    body = rand_table(npages * 2048, torch.int32).view(npages, 2048)
+    bits = (torch.rand((npages, 1920), generator=gen, device=dev) < 0.8)
+    bits = bits.to(torch.int32)
+    idx = (1 + torch.cumsum(bits, dim=1, dtype=torch.int32) - bits).contiguous()
+    i64 = idx.long()
+    del bits
+    case("paged_window_gather", f"{npages} pages INT32 R=1920",
+         lambda: kernels.paged_window_gather(body, idx),
+         lambda: kernels.paged_window_gather_plain(body, idx),
+         fn_library=lambda: body.gather(1, i64),
+         nbytes=4 * (body.numel() + 2 * idx.numel()))
+    del body, idx, i64
+
     # the gather-experiment kernels at the tools' default shapes
     n = 1 << 24
 
@@ -329,19 +352,100 @@ def check_kernels(torch, kernels, dev, seed: int):
              representative=(body == "take" and w == 1 << 20),
              fn_library=table_at(t, i) if shape is None else None,
              nbytes=4 * (2 * n + w))
-    # values below 2^24 in magnitude: the one-hot product's exact range
+    # the L2 route with sequential positions: the index and output streams
+    # alone, every sector of the table used whole
+    t, i = tool_inputs(1 << 20)
+    seq = (torch.arange(n, device=dev, dtype=torch.int32) & ((1 << 20) - 1))
+
+    def take(i):
+        return case("pallas_gather", f"take w={1 << 20} n={n} "
+                    f"{'sequential' if i is seq else 'random'} positions",
+                    lambda: kernels.pallas_gather(t, i),
+                    lambda: kernels.pallas_gather_plain(t, i),
+                    fn_library=table_at(t, i), nbytes=4 * (2 * n + (1 << 20)))
+
+    random_ms, seq_ms = take(i), take(seq)
+    _log(f"kernel pallas_gather [L2 route]: random positions {random_ms:.4f} "
+         f"ms, sequential {seq_ms:.4f} ms: the random sectors cost "
+         f"{random_ms - seq_ms:.4f} ms")
+    del seq
+    # an index view that is not 8-byte aligned, a table view that is not
+    # 16-byte aligned on the shared-memory route (staged by the plain
+    # loop), indices outside the table, and a single tile (n = blk)
+    pool = rand_table((1 << 14) + 8, torch.int32)
+    ipool = torch.randint(-5, (1 << 14) + 5, (n + 8,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    for label, tv, iv in (
+            ("unaligned idx view", pool[:1 << 14], ipool[1:n + 1]),
+            ("unaligned table view", pool[1:(1 << 14) + 1], ipool[:n]),
+            ("both views unaligned", pool[3:(1 << 14) + 3], ipool[3:n + 3]),
+            ("one tile", pool[:1 << 14], ipool[5:2048 + 5])):
+        m, w = iv.shape[0], tv.shape[0]
+        case("pallas_gather", f"take w={w} n={m} {label}",
+             lambda tv=tv, iv=iv: kernels.pallas_gather(tv, iv),
+             lambda tv=tv, iv=iv: kernels.pallas_gather_plain(tv, iv),
+             nbytes=4 * (2 * m + w))
+        t2 = tv.view(-1, 128)
+        for body in ("rows", "lanes", "sub"):
+            case("mk_gather", f"{body} w={w} n={m} {label}",
+                 lambda t2=t2, iv=iv, b=body: kernels.mk_gather(t2, iv,
+                                                                body=b),
+                 lambda t2=t2, iv=iv, b=body: kernels.mk_gather_plain(
+                     t2, iv, b),
+                 nbytes=4 * (2 * m + w))
+    del ipool
+    # the L2 route (the 2^20-entry table above) with an unaligned index view
+    # and indices outside the table
+    ipool = torch.randint(-5, (1 << 20) + 5, (n + 1,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    case("gather_pallas_vmem", f"w={1 << 20} n={n} blk=4096 unaligned idx "
+         f"view, indices in [-5, w + 5)",
+         lambda: kernels.gather_pallas_vmem(t, ipool[1:]),
+         lambda: kernels.gather_pallas_vmem_plain(t, ipool[1:]),
+         nbytes=4 * (2 * n + (1 << 20)))
+    del pool, ipool
+
+    # values below 2^24 in magnitude, where the function is ``table[idx]``
     t, i = tool_inputs(2048, hi=2 ** 24)
-    ms = case("onehot_gather", f"w=2048 n={n}",
-              lambda: kernels.onehot_gather(t, i),
-              lambda: kernels.onehot_gather_plain(t, i), representative=True,
-              fn_library=table_at(t, i), nbytes=4 * (2 * n + 2048))
-    # not a bound of the function (``table[idx]`` needs no arithmetic): what
-    # this design's multiply-adds would take at the published 67 TFLOP/s of
-    # FP32 outside the tensor cores
-    design_ops_ms = 2 * n * 2048 / 67e12 * 1e3
-    _log(f"kernel onehot_gather: design_ops_ms {design_ops_ms:.4f} "
-         f"({2 * n * 2048 / 1e9:.1f} G operations of the one-hot product), "
-         f"kernel at {100.0 * design_ops_ms / ms:.1f}% of that")
+    case("onehot_gather", f"w=2048 n={n}",
+         lambda: kernels.onehot_gather(t, i),
+         lambda: kernels.onehot_gather_plain(t, i), representative=True,
+         fn_library=table_at(t, i), nbytes=4 * (2 * n + 2048))
+    # table values over the whole domain [-2^31, 2^31 - 64), rounded
+    # through float32; indices below 0 and at or above w (they read 0); a
+    # table length that is no multiple of 4; a table view at an odd offset;
+    # a ragged n and an unaligned index view. Held to the plain version (the
+    # float64 one-hot product) and to the rounded table read directly.
+    m = (1 << 20) + 5
+    top = 2 ** 31 - 64
+    pool = torch.randint(-top, top, (2048 + 8,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pool[:4] = torch.tensor([top - 1, -(2 ** 31), 2 ** 24 + 1, top - 65],
+                            dtype=torch.int32, device=dev)
+    for label, tv in (("w=2048", pool[:2048]), ("w=2047", pool[:2047]),
+                      ("w=2048 at an odd offset", pool[1:2049]),
+                      ("w=2047 at an odd offset", pool[3:2050])):
+        w = tv.shape[0]
+        ipool = torch.randint(-3, w + 3, (m + 1,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        ipool[:2] = torch.tensor([-(2 ** 31), 2 ** 31 - 1], device=dev)
+        rounded = tv.to(torch.float32).to(torch.int64).to(torch.int32)
+        if torch.equal(rounded, tv):
+            _fail("onehot_gather: the domain case rounds nothing")
+        for idx_label, iv in (("", ipool[:m]),
+                              (" unaligned idx view", ipool[1:])):
+            inside = (iv >= 0) & (iv < w)
+            direct = torch.where(inside, rounded[iv.clamp(0, w - 1).long()],
+                                 torch.zeros_like(iv))
+            if not torch.equal(kernels.onehot_gather(tv, iv), direct):
+                _fail(f"onehot_gather [{label}] disagrees with the rounded "
+                      f"table read directly")
+            case("onehot_gather", f"{label} n={m} whole domain, indices in "
+                 f"[-3, w + 3){idx_label}",
+                 lambda tv=tv, iv=iv: kernels.onehot_gather(tv, iv),
+                 lambda tv=tv, iv=iv: kernels.onehot_gather_plain(tv, iv),
+                 nbytes=4 * (2 * m + w))
+    del pool, ipool
     for w in (1 << 20, 1 << 14):
         t, i = tool_inputs(w)
         case("gather_pallas_vmem", f"w={w} n={n} blk=4096",
@@ -666,7 +770,7 @@ def main() -> None:
                                 "radixjoin_tpu/ops/pallas_kernels.py:231"),
         "pallas_gather": ("csrc/resident_gather.cu",
                           "tools/expt_pallas.py:39"),
-        "onehot_gather": ("csrc/onehot_gather.cu",
+        "onehot_gather": ("csrc/resident_gather.cu",
                           "tools/expt_pallas.py:108"),
         "gather_pallas_vmem": ("csrc/resident_gather.cu",
                                "tools/expt_primitives.py:94"),

@@ -1,6 +1,6 @@
 // Shared declarations of the port's gather kernels (window_gather.cu,
-// blocked_window_gather.cu; paged_window_gather.cu takes the shared-memory
-// opt-in from here).
+// blocked_window_gather.cu, resident_gather.cu; paged_window_gather.cu takes
+// the shared-memory opt-in from here).
 //
 // Tables travel to a kernel as a by-value struct of up to RJT_MAX_TABLES
 // descriptors (source, destination, length, element size), so one launch
@@ -68,6 +68,55 @@ static inline int rjt_pack_tables(RjtTables* tabs, int k,
 
 __device__ __forceinline__ bool rjt_aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Staging a table in shared memory with one bulk asynchronous copy
+// (cp.async.bulk): one thread initialises an mbarrier (followed by a block
+// barrier), announces the bytes that will arrive, issues the copies, and
+// every thread waits for phase 0 of the barrier. Source and destination
+// must be 16-byte aligned and the size a multiple of 16 bytes.
+__device__ __forceinline__ uint32_t rjt_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void rjt_mbar_init(uint32_t bar_addr) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_addr)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void rjt_mbar_expect(uint32_t bar_addr,
+                                                uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          bar_addr),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void rjt_bulk_copy(void* smem_dst, const void* src,
+                                              uint32_t bytes,
+                                              uint32_t bar_addr) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(rjt_smem_addr(smem_dst)),
+      "l"(src), "r"(bytes), "r"(bar_addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void rjt_mbar_wait(uint32_t bar_addr) {
+  uint32_t arrived = 0;
+  while (!arrived) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(arrived)
+        : "r"(bar_addr)
+        : "memory");
+  }
 }
 
 // Row r (0 .. RJT_ROWS - 1) of this thread in the warp span from warp_row0.

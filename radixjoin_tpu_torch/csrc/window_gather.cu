@@ -35,10 +35,6 @@
 
 #define RJT_WG_MAX_THREADS 1024
 
-__device__ __forceinline__ uint32_t rjt_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 template <typename T>
 __device__ __forceinline__ void wg_gather_table(const T* __restrict__ src,
                                                 const T* staged, T* out,
@@ -63,11 +59,7 @@ window_gather_kernel(RjtTables tabs, int k, int w,
 
   // stage the tables that have a place in shared memory
   const uint32_t bar_addr = rjt_smem_addr(&bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_addr)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) rjt_mbar_init(bar_addr);
   __syncthreads();
   if (threadIdx.x == 0) {
     uint32_t bulk_bytes = 0;
@@ -77,22 +69,12 @@ window_gather_kernel(RjtTables tabs, int k, int w,
           (bytes & 15) == 0)
         bulk_bytes += bytes;
     }
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            bar_addr),
-        "r"(bulk_bytes)
-        : "memory");
+    rjt_mbar_expect(bar_addr, bulk_bytes);
     for (int t = 0; t < k; ++t) {
       const uint32_t bytes = (uint32_t)w * tabs.elem[t];
       if (tabs.smem_off[t] >= 0 && rjt_aligned16(tabs.in[t]) &&
-          (bytes & 15) == 0) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];\n" ::"r"(
-                rjt_smem_addr(smem + tabs.smem_off[t])),
-            "l"(tabs.in[t]), "r"(bytes), "r"(bar_addr)
-            : "memory");
-      }
+          (bytes & 15) == 0)
+        rjt_bulk_copy(smem + tabs.smem_off[t], tabs.in[t], bytes, bar_addr);
     }
   }
   for (int t = 0; t < k; ++t) {
@@ -114,18 +96,7 @@ window_gather_kernel(RjtTables tabs, int k, int w,
       }
     }
   }
-  uint32_t arrived = 0;
-  while (!arrived) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(arrived)
-        : "r"(bar_addr)
-        : "memory");
-  }
+  rjt_mbar_wait(bar_addr);
   __syncthreads();
 
   const bool idx_vec = (reinterpret_cast<uintptr_t>(idx) & 7) == 0;

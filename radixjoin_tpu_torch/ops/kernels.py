@@ -16,8 +16,9 @@ The four kernels of the in-kernel gather experiments (``tools/``) follow:
 * :func:`pallas_gather`, :func:`gather_pallas_vmem` and :func:`mk_gather`
   (one source, ``csrc/resident_gather.cu``) — gathers from a table held on
   chip, one wrapper per TPU function with its bodies as ``body=``;
-* :func:`onehot_gather` (``csrc/onehot_gather.cu``) — the gather written
-  as a one-hot product.
+* :func:`onehot_gather` (a fifth index map of the same source) — the
+  TPU's one-hot product, on this card a gather from the table rounded
+  through float32 in shared memory.
 
 Each source is compiled with its own ``nvcc`` into a shared library at
 first use (all sources at once, into the package's ``_build`` directory,
@@ -60,8 +61,8 @@ BWG_WIN = 1024
 #: split into several launches over the same index stream
 _MAX_TABLES = 16
 #: shared memory a block leaves free of staged tables: the static shared
-#: memory of ``window_gather_kernel`` (its 8-byte copy barrier), rounded up
-#: to the staging alignment
+#: memory of ``window_gather_kernel`` and ``resident_gather_kernel`` (their
+#: 8-byte copy barrier), rounded up to the staging alignment
 _SMEM_RESERVE = 16
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,8 +83,7 @@ _SIGNATURES = {
     "rjt_paged_window_gather": [_I32, _VP, _VP, _VP, _I64, _I32, _I32,
                                 _I32, _VP],
     "rjt_resident_gather": [_I32, _I32, _I32, _VP, _I64, _VP, _VP, _I64,
-                            _I32, _I32, _I32, _VP],
-    "rjt_onehot_gather": [_I32, _VP, _I32, _VP, _VP, _I64, _I32, _VP],
+                            _I32, _I32, _VP],
 }
 
 _lock = threading.Lock()
@@ -457,8 +457,11 @@ def paged_window_gather(body: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # resident gathers: pallas_gather, gather_pallas_vmem, mk_gather
 # ---------------------------------------------------------------------------
 
+#: rows one warp of ``resident_gather_kernel`` covers a trip; ``blk`` is a
+#: multiple of it (RJT_WARP_ROWS in csrc/gather_common.cuh)
+RESIDENT_SPAN = 128
 #: index maps of csrc/resident_gather.cu (RjtMap)
-_MAPS = {"full": 0, "lane": 1, "row": 2, "sublane": 3}
+_MAPS = {"full": 0, "lane": 1, "row": 2, "sublane": 3, "onehot": 4}
 #: body of each TPU function -> (index map, table is 2-D (w / 128, 128))
 _PALLAS_GATHER_BODIES = {"take": ("full", False),
                          "take_unique": ("full", False),
@@ -488,6 +491,35 @@ def resident_gather_plain(table: torch.Tensor, idx: torch.Tensor, mode: str,
     return flat.index_select(0, pos)
 
 
+def _table_fits_shared_memory(w: int, smem_optin: int) -> bool:
+    """Whether an int32 table of ``w`` entries takes the shared-memory route
+    of ``csrc/resident_gather.cu`` on a card whose blocks may opt in to
+    ``smem_optin`` bytes: the table and the kernel's copy barrier must fit
+    one block. (How many such blocks share an SM, and hence the grid, the
+    launch asks of the card's occupancy calculator.)"""
+    return 4 * w + _SMEM_RESERVE <= smem_optin
+
+
+def _launch_resident(fn, mode: str, use_smem: bool, table: torch.Tensor,
+                     idx: torch.Tensor, blk: int) -> torch.Tensor:
+    """One launch of ``resident_gather_kernel`` for checked CUDA tensors,
+    counted on ``fn``."""
+    n = idx.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=idx.device)
+    if n == 0:
+        return out
+    rc = build().rjt_resident_gather(
+        _index(idx.device), _MAPS[mode], int(use_smem), table.data_ptr(),
+        table.numel(), idx.data_ptr(), out.data_ptr(), n, blk,
+        _device_limits(idx.device)[0], _stream(idx.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error "
+                           f"{rc}")
+    fn.launches += 1
+    return out
+
+
 def _resident_gather(fn, table: torch.Tensor, idx: torch.Tensor, mode: str,
                      two_d: bool, blk: int) -> torch.Tensor:
     name = fn.__name__
@@ -505,32 +537,16 @@ def _resident_gather(fn, table: torch.Tensor, idx: torch.Tensor, mode: str,
     elif table.dim() != 1 or table.shape[0] == 0:
         raise ValueError(f"{name}: this body takes a non-empty 1-D table")
     n = idx.shape[0]
-    if blk <= 0 or blk % 128 or n % blk:
+    if blk <= 0 or blk % RESIDENT_SPAN or n % blk:
         raise ValueError(f"{name}: blk must be a multiple of 128 dividing "
                          f"n = {n} (the TPU grid covers n // blk blocks)")
     w = table.numel()
     if idx.device.type == "cpu":
         return resident_gather_plain(table, idx, mode, blk)
     _cuda_or_raise(idx.device, name)
-    lib = build()
-    sm_count, smem_optin = _device_limits(idx.device)
-    use_smem = 4 * w <= smem_optin
-    out = torch.empty(n, dtype=torch.int32, device=idx.device)
+    use_smem = _table_fits_shared_memory(w, _device_limits(idx.device)[1])
     fn.last_route = "smem" if use_smem else "l2"
-    if n == 0:
-        return out
-    block = 1024
-    per_sm = 2 if not use_smem or 4 * w <= 100 * 1024 else 1
-    grid = max(1, min(-(-n // block), per_sm * sm_count))
-    rc = lib.rjt_resident_gather(
-        _index(idx.device), _MAPS[mode], int(use_smem), table.data_ptr(), w,
-        idx.data_ptr(), out.data_ptr(), n, blk, grid, block,
-        _stream(idx.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    fn.launches += 1
-    return out
+    return _launch_resident(fn, mode, use_smem, table, idx, blk)
 
 
 def pallas_gather_plain(table, idx, body: str = "take", blk: int = 2048):
@@ -608,9 +624,15 @@ def onehot_gather_plain(table: torch.Tensor, idx: torch.Tensor,
 
 def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Counterpart of tools/expt_pallas.py::case_pallas_onehot_mxu:
-    ``int32(onehot(idx) . float32(table))`` for a 1-D int32 table whose
-    float32 copy fits shared memory — ``table[idx]`` for values below 2^24
-    in magnitude, 0 for an index outside ``[0, w)``."""
+    ``int32(onehot(idx) . float32(table))`` for a 1-D int32 table that fits
+    shared memory — ``int32(float32(table))[idx]``, which is ``table[idx]``
+    for values below 2^24 in magnitude, and 0 for an index outside
+    ``[0, w)``. Table values lie in ``[-2^31, 2^31 - 64)``: from 2^31 - 64
+    up, float32 rounds to 2^31, which no int32 holds.
+
+    On the card no product is formed: each block rounds the table through
+    float32 into shared memory and gathers from there (the ONEHOT map of
+    ``csrc/resident_gather.cu``)."""
     name = "onehot_gather"
     _check_index(idx, 1, name)
     if (table.dtype != torch.int32 or table.dim() != 1
@@ -624,24 +646,11 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return onehot_gather_plain(table, idx)
     _cuda_or_raise(idx.device, name)
     w = table.shape[0]
-    sm_count, smem_optin = _device_limits(idx.device)
-    if 4 * w > smem_optin:
+    if not _table_fits_shared_memory(w, _device_limits(idx.device)[1]):
         raise ValueError(f"{name}: a {w}-entry table does not fit shared "
                          "memory")
-    lib = build()
-    n = idx.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=idx.device)
-    if n == 0:
-        return out
-    grid = max(1, min(-(-n // 2048), 8 * sm_count))
-    rc = lib.rjt_onehot_gather(
-        _index(idx.device), table.data_ptr(), w, idx.data_ptr(),
-        out.data_ptr(), n, grid, _stream(idx.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    onehot_gather.launches += 1
-    return out
+    return _launch_resident(onehot_gather, "onehot", True, table, idx,
+                            RESIDENT_SPAN)
 
 
 _WRAPPERS = (window_gather, blocked_window_gather_multi, paged_window_gather,

@@ -3,8 +3,10 @@ the JAX package's tools/expt_pallas.py).
 
   P1: gathers from a table held on chip — take / take_unique /
       take_along_axis over lanes (:func:`kernels.pallas_gather`) and the
-      one-hot product (:func:`kernels.onehot_gather`)
-  P2: tensor-core matrix product rates (int8, bf16)
+      TPU tool's one-hot product, which on this card is a gather from
+      shared memory too (:func:`kernels.onehot_gather`)
+  P2: tensor-core matrix product rates (int8, bf16): what a one-hot
+      product would run at
   P3: compare throughput (one-hot construction cost)
   P4: segmented sort vs one flat sort
   P5: cummax and cumsum throughput
@@ -71,8 +73,13 @@ def case_pallas_ta_lanes(n, w, device=None):
 
 
 def case_pallas_onehot_mxu(n, w, device=None):
-    """Gather from a 2048-entry table as a one-hot product (exact for
-    values < 2^24)."""
+    """The counterpart of the TPU tool's one-hot product over a 2048-entry
+    table, ``int32(float32(table))[idx]`` (``table[idx]`` for values below
+    2^24; 0 for an index outside the table). The TPU forms the one-hot
+    matrix because its matrix unit is its fast dynamic gather; on this
+    card the kernel forms no product: each block rounds the table through
+    float32 into shared memory and gathers from there. ``mxu_int8``,
+    ``mxu_bf16`` and ``vpu_compare`` price the product itself."""
     device = _default_device(device)
     w = 2048
     rng = np.random.default_rng(0)

@@ -260,6 +260,97 @@ def test_cuda_resident_gathers_match_plain(cuda_device, route):
                                        "mk_gather"))
 
 
+# wrapper, body -> the table is 2-D (w / 128, 128)
+_RESIDENT_BODIES = [("pallas_gather", "take", False),
+                    ("pallas_gather", "take_unique", False),
+                    ("pallas_gather", "ta_lanes", True),
+                    ("gather_pallas_vmem", None, False),
+                    ("mk_gather", "rows", True),
+                    ("mk_gather", "lanes", True),
+                    ("mk_gather", "2level", True),
+                    ("mk_gather", "sub", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["smem", "l2"])
+@pytest.mark.parametrize("wrapper,body,two_d", _RESIDENT_BODIES)
+def test_cuda_resident_gather_unaligned_views_one_launch(cuda_device, route,
+                                                         wrapper, body,
+                                                         two_d):
+    """Every index map on both routes: one launch a call, bit-equal to the
+    plain version for aligned inputs, for an index view that is not 8-byte
+    aligned, for a table view that is not 16-byte aligned (on the shared
+    memory route it is staged by the plain loop), for indices outside the
+    table (clamped), and for a single tile (n = blk)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    dev = cuda_device
+    w = 1 << 14 if route == "smem" else 1 << 20
+    blk, n = 2048, 1 << 20
+    pool = torch.randint(-(1 << 31), 1 << 31, (w + 8,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    ipool = torch.randint(-5, w + 5, (n + 8,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    fn = getattr(kernels, wrapper)
+    plain = getattr(kernels, wrapper + "_plain")
+    kwargs = {} if body is None else {"body": body}
+    for table, idx in ((pool[:w], ipool[:n]), (pool[:w], ipool[1:n + 1]),
+                       (pool[1:w + 1], ipool[:n]),
+                       (pool[3:w + 3], ipool[3:n + 3]),
+                       (pool[:w], ipool[5:blk + 5])):
+        table = table.view(-1, 128) if two_d else table
+        kernels.reset_launch_counts()
+        got = fn(table, idx, blk=blk, **kwargs)
+        torch.cuda.synchronize()
+        assert fn.last_route == route
+        assert kernels.launch_counts()[wrapper] == 1
+        want = (plain(table, idx, blk=blk) if body is None
+                else plain(table, idx, body, blk))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,offset", [(2048, 0), (2047, 0), (2048, 1),
+                                      (2047, 3), (1, 0), (40000, 0)])
+def test_cuda_onehot_gather_edges(cuda_device, w, offset):
+    """Indices below 0 and at or above ``w`` read 0; a table length that is
+    no multiple of 4 and a table view at an odd offset; table values over
+    the whole stated domain, rounded through float32; ragged ``n``; one
+    launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    dev = cuda_device
+    top = (1 << 31) - 64
+    pool = torch.randint(-top, top, (w + 8,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    table = pool[offset:offset + w]
+    edge = torch.tensor([top - 1, -(1 << 31), (1 << 24) + 1, top - 65],
+                        dtype=torch.int32, device=dev)[:w]
+    table[:edge.shape[0]] = edge
+    for n in (1, 127, 128, (1 << 20) + 5):
+        idx = torch.randint(-3, w + 3, (n + 1,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[:2] = torch.tensor([-(1 << 31), (1 << 31) - 1], device=dev)
+        for i in (idx[:n], idx[1:]):
+            kernels.reset_launch_counts()
+            got = kernels.onehot_gather(table, i)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["onehot_gather"] == 1
+            inside = (i >= 0) & (i < w)
+            rounded = table.to(torch.float32).to(torch.int64).to(torch.int32)
+            want = torch.where(inside, rounded[i.clamp(0, w - 1).long()],
+                               torch.zeros((), dtype=torch.int32, device=dev))
+            assert torch.equal(got, want)
+            if n <= 1 << 14:
+                assert torch.equal(got, kernels.onehot_gather_plain(table, i))
+
+
+@pytest.mark.cuda
+def test_cuda_onehot_gather_rejects_a_table_past_shared_memory(cuda_device):
+    table = torch.zeros(1 << 20, dtype=torch.int32, device=cuda_device)
+    idx = torch.zeros(128, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        kernels.onehot_gather(table, idx)
+
+
 @pytest.mark.cuda
 def test_cuda_onehot_gather_matches_plain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(2)

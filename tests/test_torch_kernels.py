@@ -209,6 +209,30 @@ def test_staging_plan_keeps_what_fits_and_leaves_the_rest_on_the_card():
     assert kernels._staging_plan([8], 4096, 0) == ([-1], 0)
 
 
+@pytest.mark.parametrize("w,optin,fits", [
+    (1 << 14, 227 * 1024, True),    # 64 KiB: the tools' small window
+    (1 << 20, 227 * 1024, False),   # 4 MiB: read through L2
+    (58108, 227 * 1024, True),      # the table and the copy barrier, exactly
+    (58109, 227 * 1024, False),
+    (2048, 48 * 1024, True),
+    (1, 16, False),                 # no room beside the barrier
+])
+def test_resident_route_is_the_table_and_its_barrier_in_one_block(w, optin,
+                                                                  fits):
+    assert 4 * 58108 + kernels._SMEM_RESERVE == 227 * 1024
+    assert kernels._table_fits_shared_memory(w, optin) is fits
+
+
+def test_resident_maps_and_entry_points():
+    # one source serves the four tool kernels: five index maps, one entry
+    assert sorted(kernels._MAPS, key=kernels._MAPS.get) == [
+        "full", "lane", "row", "sublane", "onehot"]
+    assert "rjt_onehot_gather" not in kernels._SIGNATURES
+    assert kernels.RESIDENT_SPAN == 128
+    for bodies in (kernels._PALLAS_GATHER_BODIES, kernels._MK_BODIES):
+        assert all(mode in kernels._MAPS for mode, _two_d in bodies.values())
+
+
 @pytest.mark.parametrize("ro", [1920, 3840])
 def test_paged_window_gather_plain_matches_pallas(ro):
     rng = np.random.default_rng(ro)

@@ -95,6 +95,47 @@ def test_onehot_gather_matches_tool_kernel(interpret, seed):
                               table[np.clip(idx, 0, w - 1)], 0))
 
 
+# case -> (table length, largest table magnitude, JAX kernel runs it). The
+# JAX tool fixes its table at 2048 entries, so another length is held to
+# the numpy form alone.
+_ONEHOT_CASES = {
+    "exact_below_2p24": (2048, 1 << 24, True),
+    "rounds_from_2p24_up": (2048, (1 << 31) - 64, True),
+    "w2047": (2047, (1 << 31) - 64, False),
+    "w1": (1, (1 << 31) - 64, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ONEHOT_CASES))
+def test_onehot_gather_rounds_through_float32(interpret, case):
+    """``int32(float32(table))[idx]`` over the whole stated domain of table
+    values, ``[-2^31, 2^31 - 64)``, and 0 for indices below 0 and at or
+    above ``w``: the plain version against numpy and, at the tool's table
+    length, against the tool's kernel. Tolerance: none."""
+    w, top, runs_in_jax = _ONEHOT_CASES[case]
+    rng = np.random.default_rng(w)
+    table = rng.integers(-top, top, w).astype(np.int32)
+    edge = np.array([(1 << 31) - 65, -(1 << 31), (1 << 24) + 1,
+                     -(1 << 24) - 1, (1 << 31) - 129, 0], np.int64)
+    edge = edge[(edge < top) & ((edge >= -top) | (top > 1 << 24))]
+    edge = edge[:w].astype(np.int32)
+    table[:len(edge)] = edge
+    idx = rng.integers(-3, w + 3, N).astype(np.int32)
+    idx[:8] = [-1, w, w + 1, -(1 << 31), (1 << 31) - 1, 0, w - 1, -w]
+    got = kernels.onehot_gather(torch.from_numpy(table),
+                                torch.from_numpy(idx))
+    inside = (idx >= 0) & (idx < w)
+    rounded = table.astype(np.float32).astype(np.int32)
+    want = np.where(inside, rounded[np.clip(idx, 0, w - 1)], 0)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if top > 1 << 24:
+        assert (rounded != table).any()  # the rounding is exercised
+    if runs_in_jax:
+        step, _carry, _rows = j_pallas.case_pallas_onehot_mxu(N, w)
+        _same(got, _run_of(step)(jnp.asarray(table), jnp.asarray(idx)))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("w", [1024, 2048])
 def test_gather_pallas_vmem_matches_tool_kernel(interpret, w, seed):
