@@ -52,16 +52,42 @@ Phases (any failure exits non-zero; the last line of standard output is
    at their default shapes; the counters are read just after, and every
    kernel of the path must have launched.
 
+5. Memory and batch, on the card, over phase 3's plans and data, with the
+   counters set to 0 just before and read just after:
+   a. S1 and F1 on the stepwise executor (``RJT_EXEC_MODE=stepwise``):
+      rows equal to phase 3's, the blocked-window and paged-decode kernels
+      launched;
+   b. S2 under a budget of a quarter of its scan bytes: ``execute`` takes
+      the host-staged radix spill and streams more than one partition
+      pair through the card; rows equal to phase 3's and the numpy count,
+      ``admission_host_spills == 1``, at least one blocked-window launch
+      per joined partition pair;
+   c. S1, S3, S1 under a budget that holds either alone but not the
+      uploads of both: evictions fire, results stay equal, the pinned
+      bytes stay under the budget, and after ``clear_device_caches()``
+      ``torch.cuda.memory_allocated()`` is back within 1 MiB of its value
+      at the start of the phase (a release dropped every reference);
+   d. ``execute_many`` over the four plans twice, under the default budget
+      and under one that defers plans: each result equals the serial one
+      in input order, no degradation tally rose; batch ms against the sum
+      of phase 3's serial warm ms, and the peak device memory;
+   e. one plan whose first fused run is made to raise
+      ``torch.cuda.OutOfMemoryError`` (from here; the package has no such
+      switch): ``oom_retries == 1``, result equal.
+
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-"pct_of_bound"}, ...]}``.
+"pct_of_bound", "launches_memory_batch"}, ...]}`` (``launches`` counts
+phase 3 for the engine's three kernels and phase 4 for the others;
+``launches_memory_batch`` counts phase 5).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -488,6 +514,9 @@ def _same_rows(np, a, b) -> bool:
     nb, cb = _result_columns(np, b)
     if na != nb or len(ca) != len(cb):
         return False
+    if all(np.array_equal(va, vb) and np.array_equal(xa, xb)
+           for (va, xa), (vb, xb) in zip(ca, cb)):
+        return True  # equal row for row: no sort needed
     keys_a, keys_b = [], []
     for (va, xa), (vb, xb) in zip(ca, cb):
         if xa.dtype == object:
@@ -559,7 +588,7 @@ def run_main_path(torch, np, rt, kernels, args):
 
     ctx = rt.build_context()
     torch.cuda.reset_peak_memory_stats()
-    results = {}
+    results, wall_ms = {}, {}
     kernels.reset_launch_counts()
     for name, _build, _lazy in shapes:
         for run in ("cold", "warm"):
@@ -569,6 +598,7 @@ def run_main_path(torch, np, rt, kernels, args):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t1) * 1e3
             results[(name, run)] = (res, dict(plans[name]._last_join_totals))
+            wall_ms[(name, run)] = ms
             _log(f"{name} {run}: {ms:.1f} ms wall (execute incl. page "
                  f"encode of the result), {res.num_rows} rows")
     launches = kernels.launch_counts()
@@ -578,6 +608,7 @@ def run_main_path(torch, np, rt, kernels, args):
     _log(f"main path kernel launches: {json.dumps(launches)}")
 
     strategies = set()
+    root_rows = {}
     cpu = rt.build_context("cpu")
     for name, build, lazy in shapes:
         plan_strategies = set(
@@ -599,6 +630,7 @@ def run_main_path(torch, np, rt, kernels, args):
                 _fail(f"{name} {run}: rows differ from the cpu oracle")
         if oracle.num_rows != expected:
             _fail(f"{name}: {oracle.num_rows} rows, numpy count {expected}")
+        root_rows[name] = expected
         _log(f"{name}: cold and warm equal the cpu oracle in rows and "
              f"per-join totals {oracle_plan._last_join_totals}; root rows "
              f"{expected} match the numpy count")
@@ -612,7 +644,13 @@ def run_main_path(torch, np, rt, kernels, args):
         _fail(f"a kernel of the path was not launched: {launches}")
     for name, _build, _lazy in shapes:
         profile_warm(torch, rt, plans[name], ctx, name)
-    return launches
+    return {
+        "launches": launches, "ctx": ctx, "plans": plans,
+        "names": [name for name, _build, _lazy in shapes],
+        "warm": {name: results[(name, "warm")][0] for name in plans},
+        "warm_ms": {name: wall_ms[(name, "warm")] for name in plans},
+        "root_rows": root_rows,
+    }
 
 
 #: kernels the engine's main path launches (S1-S3, F1)
@@ -670,6 +708,233 @@ def run_devtime_path(torch, kernels, args):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: memory and batch
+# ---------------------------------------------------------------------------
+
+
+class _Env:
+    """Set environment variables for a ``with`` block."""
+
+    def __init__(self, **values):
+        self._values = values
+        self._old = {}
+
+    def __enter__(self):
+        for k, v in self._values.items():
+            self._old[k] = os.environ.get(k)
+            os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self._old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_memory_and_batch(torch, np, rt, kernels, main):
+    """Phase 5 (see the module docstring). Returns its launch counts."""
+    from radixjoin_tpu_torch import engine
+    from radixjoin_tpu_torch.ops import join as join_ops
+    from radixjoin_tpu_torch.plan import fused as fz
+
+    ctx, plans, warm = main["ctx"], main["plans"], main["warm"]
+    ledger = engine.device_ledger(ctx.device)
+    mib = float(1 << 20)
+
+    def timed_execute(plan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rt.execute(plan, ctx)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def check_rows(tag, name, res):
+        if not _same_rows(np, res, warm[name]):
+            _fail(f"{tag}: {name} differs from the fused result of phase 3")
+
+    def check_no_tally(tag):
+        stats = engine.engine_stats()
+        if any(stats[k] for k in engine.ENGINE_STATS):
+            _fail(f"{tag}: a degradation tally rose: {stats}")
+
+    # nothing is in flight: drop what phases 3 and 4 cached, take the baseline
+    engine.clear_device_caches()
+    engine.reset_engine_stats()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    _log(f"phase 5: device memory at the start {baseline / mib:.1f} MiB "
+         f"allocated, ledger pinned {ledger.pinned_bytes()} bytes")
+    kernels.reset_launch_counts()
+
+    # 5a: the stepwise executor
+    before = kernels.launch_counts()
+    with _Env(RJT_EXEC_MODE="stepwise"):
+        for name in ("S1", "F1"):
+            res, ms = timed_execute(plans[name])
+            check_rows("5a stepwise", name, res)
+            _log(f"5a stepwise {name}: {ms:.1f} ms wall, {res.num_rows} rows, "
+                 f"equal to the fused result")
+    after = kernels.launch_counts()
+    for k in ("blocked_window_gather_multi", "paged_window_gather"):
+        if after[k] <= before[k]:
+            _fail(f"5a stepwise: {k} was not launched: {after}")
+    check_no_tally("5a stepwise")
+    _log(f"5a stepwise kernel launches: {json.dumps(after)}")
+
+    # 5b: admission spill of S2 through the host-staged radix executor
+    s2 = plans["S2"]
+    scan_bytes = engine._estimate_scan_bytes(s2)
+    budget = scan_bytes // 4
+    pairs = []
+    count_and_index = join_ops.join_count_and_index
+
+    def counting(*args):
+        pairs.append(1)
+        return count_and_index(*args)
+
+    before = kernels.launch_counts()
+    join_ops.join_count_and_index = counting
+    try:
+        with _Env(RJT_HBM_BUDGET_BYTES=budget):
+            res, ms = timed_execute(s2)
+    finally:
+        join_ops.join_count_and_index = count_and_index
+    after = kernels.launch_counts()
+    check_rows("5b spill", "S2", res)
+    if res.num_rows != main["root_rows"]["S2"]:
+        _fail(f"5b spill: {res.num_rows} rows, numpy count "
+              f"{main['root_rows']['S2']}")
+    stats = engine.engine_stats()
+    if stats["admission_host_spills"] != 1 or stats["oom_retries"]:
+        _fail(f"5b spill: tallies {stats}")
+    partitions = s2._last_spill_partitions
+    rose = (after["blocked_window_gather_multi"]
+            - before["blocked_window_gather_multi"])
+    if len(pairs) <= len(partitions) or rose < len(pairs):
+        _fail(f"5b spill: {len(pairs)} partition pairs over "
+              f"{len(partitions)} joins, blocked-window launches rose by "
+              f"{rose}")
+    _log(f"5b spill S2: budget {budget} bytes (scan bytes {scan_bytes}), "
+         f"{ms:.1f} ms wall, {res.num_rows} rows equal to the fused result "
+         f"and the numpy count; partitions per join {partitions}, "
+         f"{len(pairs)} non-empty partition pairs joined on the card, "
+         f"blocked-window launches +{rose}, admission_host_spills 1")
+    engine.reset_engine_stats()
+
+    # 5c: eviction under a budget that holds S1 or S3 alone
+    _res, _ms = timed_execute(plans["S1"])  # S1's uploads, alone
+    s1_pinned = ledger.pinned_bytes()
+    budget = max(engine._estimate_query_bytes(plans[n])
+                 for n in ("S1", "S3")) + s1_pinned // 2
+    evictions = ledger.stats["evictions"]
+    with _Env(RJT_HBM_BUDGET_BYTES=budget):
+        for name in ("S1", "S3", "S1"):
+            res, ms = timed_execute(plans[name])
+            check_rows("5c eviction", name, res)
+            pinned = ledger.pinned_bytes()
+            if pinned > budget:
+                _fail(f"5c eviction: pinned {pinned} bytes over the budget "
+                      f"{budget}")
+            _log(f"5c eviction {name}: {ms:.1f} ms wall, pinned {pinned} "
+                 f"bytes of a budget of {budget}, evictions "
+                 f"{ledger.stats['evictions'] - evictions}")
+    evicted = ledger.stats["evictions"] - evictions
+    if evicted <= 0:
+        _fail("5c eviction: no eviction fired")
+    check_no_tally("5c eviction")
+    del res, _res
+    engine.clear_device_caches()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated()
+    _log(f"5c eviction: {evicted} evictions, S1's uploads {s1_pinned} bytes; "
+         f"after clear_device_caches() {left / mib:.3f} MiB allocated "
+         f"against {baseline / mib:.3f} MiB at the start of the phase")
+    if abs(left - baseline) > (1 << 20) or ledger.pinned_bytes():
+        _fail(f"5c eviction: {left} bytes allocated after "
+              f"clear_device_caches(), {baseline} before the phase, ledger "
+              f"pinned {ledger.pinned_bytes()}")
+
+    # 5d: the batch API, default budget, then a budget that defers plans
+    names = main["names"] + main["names"]
+    batch = [plans[n] for n in names]
+    serial_ms = 2 * sum(main["warm_ms"][n] for n in main["names"])
+    refused = []
+    reserve = ledger.reserve
+
+    def counting_reserve(est, budget, block=True):
+        got = reserve(est, budget, block)
+        if got is None:
+            refused.append(est)
+        return got
+
+    ests = sorted(engine._estimate_query_bytes(p) for p in plans.values())
+    tight = ests[-1] + ests[-1] // 4
+    for label, env in (("default budget", {}),
+                       ("tight budget", {"RJT_HBM_BUDGET_BYTES": tight})):
+        for run in ("cold", "warm"):
+            del refused[:]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ledger.reserve = counting_reserve
+            try:
+                with _Env(**env):
+                    t0 = time.perf_counter()
+                    results = rt.execute_many(batch, ctx)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                del ledger.reserve
+            for name, res in zip(names, results):
+                check_rows(f"5d batch ({label}, {run})", name, res)
+            check_no_tally(f"5d batch ({label}, {run})")
+            _log(f"5d batch, {label}"
+                 + (f" of {tight} bytes" if env else "")
+                 + f", {run}: {len(batch)} plans in {ms:.1f} ms against "
+                 f"{serial_ms:.1f} ms for the serial warm runs of phase 3; "
+                 f"{len(refused)} admissions deferred, peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / mib:.1f} MiB, ledger "
+                 f"pinned {ledger.pinned_bytes()} bytes, evictions so far "
+                 f"{ledger.stats['evictions']}")
+            del results
+        if env and not refused:
+            _fail("5d batch: the tight budget deferred no plan")
+
+    # 5e: the out-of-memory ladder, with the fault injected from here
+    run_fused = fz.run
+    calls = []
+
+    def failing(structure):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("injected by chip_smoke.py")
+        return run_fused(structure)
+
+    fz.run = failing
+    try:
+        res, ms = timed_execute(plans["S1"])
+    finally:
+        fz.run = run_fused
+    check_rows("5e out-of-memory ladder", "S1", res)
+    stats = engine.engine_stats()
+    if (stats["oom_retries"] != 1 or stats["oom_host_spills"]
+            or stats["admission_host_spills"] or len(calls) < 2):
+        _fail(f"5e out-of-memory ladder: tallies {stats}, {len(calls)} runs")
+    _log(f"5e out-of-memory ladder S1: first fused run raised, retried after "
+         f"clear_device_caches() in {ms:.1f} ms, oom_retries 1, result equal")
+    engine.reset_engine_stats()
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    _log(f"memory and batch path kernel launches: {json.dumps(launches)}; "
+         f"ledger stats {json.dumps(ledger.stats)}")
+    if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS):
+        _fail(f"a kernel of the memory and batch path was not launched: "
+              f"{launches}")
+    return launches
+
+
 def profile_warm(torch, rt, plan, ctx, name: str) -> None:
     """Where a warm run's time goes: the fused run with its fetches and
     root decode, the result page encode, and the device's busy time from
@@ -682,7 +947,7 @@ def profile_warm(torch, rt, plan, ctx, name: str) -> None:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    host = engine._fused_attempts(plan, ctx.device)
+    host = engine._execute_fused(plan, ctx)
     t1 = time.perf_counter()
     engine._encode_result(host)
     t2 = time.perf_counter()
@@ -701,7 +966,8 @@ def profile_warm(torch, rt, plan, ctx, name: str) -> None:
     wall_ms = (t4 - t3) * 1e3
     _log(f"{name} warm breakdown: fused run + fetch + root decode "
          f"{(t1 - t0) * 1e3:.1f} ms, result page encode "
-         f"{(t2 - t1) * 1e3:.1f} ms")
+         f"{(t2 - t1) * 1e3:.1f} ms; the engine's own stage clock "
+         f"{json.dumps(plan._last_exec_stats)}")
     if not events:
         _log(f"{name} warm profile: device time not measured (the "
              f"profiler reported none)")
@@ -726,6 +992,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--devtime-size", type=int, default=1 << 22)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -751,13 +1018,28 @@ def main() -> None:
         if "Used" in line or "Compiling entry" in line:
             _log(f"  ptxas: {line.strip()}")
 
+    clock = [t_start]
+
+    def phase_done(label: str) -> None:
+        clock.append(time.perf_counter())
+        _log(f"{label}: {clock[-1] - clock[-2]:.1f} s, "
+             f"{clock[-1] - t_start:.1f} s since the start")
+
+    phase_done("phase 1 (environment and build)")
     # phase 2: kernels against their plain versions
     dev = torch.device("cuda")
     records = check_kernels(torch, kernels, dev, args.seed)
+    phase_done("phase 2 (kernel checks)")
     # phase 3: the main path, counted
-    launches = run_main_path(torch, np, rt, kernels, args)
+    main_path = run_main_path(torch, np, rt, kernels, args)
+    launches = main_path["launches"]
+    phase_done("phase 3 (main path)")
     # phase 4: the device-time path, counted
     dt_launches = run_devtime_path(torch, kernels, args)
+    phase_done("phase 4 (device-time path)")
+    # phase 5: memory and batch, counted
+    mb_launches = run_memory_and_batch(torch, np, rt, kernels, main_path)
+    phase_done("phase 5 (memory and batch)")
     _log(f"card: {smi}")
 
     meta = {
@@ -788,6 +1070,7 @@ def main() -> None:
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": rec["library_ms"],
             "pct_of_bound": rec["pct_of_bound"],
+            "launches_memory_batch": mb_launches[name],
         })
         _log(f"{name}: the times below are at {rec['shape']}; bound from "
              f"{rec['bound_bytes']} bytes at {HBM_BYTES_PER_S / 1e9:.0f} "

@@ -94,3 +94,12 @@ def detect(device=None) -> ChipSpec:
         l2_bytes=int(props.L2_cache_size),
         sm_count=int(props.multi_processor_count),
     )
+
+
+def norm_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index filled in, so that
+    ``"cuda"`` and ``"cuda:0"`` name one memo key and one ledger."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -1,5 +1,5 @@
-"""Single-device equi-join kernels in PyTorch (port of the main-path joins
-of radixjoin_tpu/ops/join.py).
+"""Single-device equi-join kernels in PyTorch (port of
+radixjoin_tpu/ops/join.py).
 
 The engine lowers every join of the fused executor's main path to one of
 the sort-free formulations below (plus the sort-based unique fallback):
@@ -16,6 +16,12 @@ the sort-free formulations below (plus the sort-based unique fallback):
   one sort of build ++ probe with segment scans, payload planes carried
   through the sort's permutation; for FP64 keys, key windows too sparse
   for a CSR index, and combined pads of at least 2^23 rows.
+
+The stepwise executor and the host-staged radix spill join through the
+two-phase sort join instead: :func:`join_count_impl` (build-side sort,
+binary-search probe), one host sync on the total to pick the output
+bucket, :func:`join_expand_impl`; :func:`join_count_and_index` drives the
+two and :func:`gather_columns` materializes.
 
 NULL-key semantics: rows with ``valid == False`` never match (inner join
 drops NULL keys, reference src/execute.cpp:62-83).
@@ -112,6 +118,30 @@ def _owner_recovery(offsets: torch.Tensor, emits: torch.Tensor,
     return owner.clamp(0, n - 1)
 
 
+def _sort_build(build_keys, build_valid):
+    """The build side ordered by (invalid, key, row id): ``(keys_search,
+    perm, nvalid)`` with ``perm`` the original row id per sorted slot
+    (int32), ``nvalid`` the valid-row count (on the device) and
+    ``keys_search`` the sorted keys with the invalid tail overwritten by
+    the dtype's maximum, so the whole array is sorted for a binary search.
+    A real key equal to that maximum still counts exactly because the
+    callers clamp their bounds to ``nvalid``.
+
+    The JAX package sorts ``(invalid, key, iota)`` lexicographically with
+    a stable sort; two stable passes, minor key first, give that order."""
+    bp = build_keys.shape[0]
+    o1 = torch.sort(build_keys, stable=True).indices
+    o2 = torch.sort((~build_valid[o1]).to(torch.uint8), stable=True).indices
+    perm64 = o1[o2]
+    keys_sorted = build_keys[perm64]
+    nvalid = build_valid.sum()  # stays on the device: no host sync
+    maxval = torch.iinfo(build_keys.dtype).max
+    pos = torch.arange(bp, device=build_keys.device)
+    keys_search = torch.where(pos < nvalid, keys_sorted,
+                              torch.full_like(keys_sorted, maxval))
+    return keys_search, perm64.to(torch.int32), nvalid
+
+
 def join_unique_impl(build_keys, build_valid, probe_keys, probe_valid):
     """FK->PK fast path: build keys are pairwise distinct among valid rows,
     so every probe row matches at most once and the output stays
@@ -121,19 +151,7 @@ def join_unique_impl(build_keys, build_valid, probe_keys, probe_valid):
     Returns ``(bidx, found, total)``: build row id per probe row (0 where
     not found), the match mask, and the exact match count (int64)."""
     bp = build_keys.shape[0]
-    dev = build_keys.device
-    # the JAX version sorts (invalid, key, iota) lexicographically with a
-    # stable sort; two stable passes, minor key first, give that order
-    o1 = torch.sort(build_keys, stable=True).indices
-    o2 = torch.sort((~build_valid[o1]).to(torch.uint8), stable=True).indices
-    perm64 = o1[o2]
-    keys_sorted = build_keys[perm64]
-    perm = perm64.to(torch.int32)
-    nvalid = build_valid.sum()  # stays on the device: no host sync
-    maxval = torch.iinfo(build_keys.dtype).max
-    pos = torch.arange(bp, device=dev)
-    keys_search = torch.where(pos < nvalid, keys_sorted,
-                              torch.full_like(keys_sorted, maxval))
+    keys_search, perm, nvalid = _sort_build(build_keys, build_valid)
     lo = torch.searchsorted(keys_search, probe_keys, side="left")
     lo_c = lo.clamp(max=bp - 1)
     found = probe_valid & (lo < nvalid) & (keys_search[lo_c] == probe_keys)
@@ -402,3 +420,82 @@ def join_merge_full_impl(build_keys, build_valid, probe_keys, probe_valid,
                 for i in range(0, len(planes), 2)]
 
     return pairs(b_got), pairs(p_got), live, total
+
+
+# ---------------------------------------------------------------------------
+# Two-phase sort join (stepwise executor, radix spill)
+# ---------------------------------------------------------------------------
+
+
+def join_count_impl(build_keys, build_valid, probe_keys, probe_valid):
+    """Count pass of the two-phase join. Inputs are padded, padding rows
+    invalid. Returns ``(perm, lo, counts, offsets, total)``:
+
+      * ``perm``    (Bp,) int32 — original build row id per sorted slot
+      * ``lo``      (Pp,) int32 — start of the matching build run per probe
+      * ``counts``  (Pp,) int32 — matches per probe row (0 if invalid)
+      * ``offsets`` (Pp,) int32 — exclusive prefix sum of counts
+      * ``total``   ()    int64 — output cardinality
+
+    (the JAX function's values and dtypes)."""
+    keys_search, perm, nvalid = _sort_build(build_keys, build_valid)
+    nvalid32 = nvalid.to(torch.int32)
+    lo = torch.searchsorted(keys_search, probe_keys, side="left")
+    hi = torch.searchsorted(keys_search, probe_keys, side="right")
+    lo = torch.minimum(lo.to(torch.int32), nvalid32)
+    hi = torch.minimum(hi.to(torch.int32), nvalid32)
+    counts = torch.where(probe_valid, hi - lo, 0)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    total = counts.sum(dtype=torch.int64)
+    return perm, lo, counts, offsets, total
+
+
+def join_expand_impl(perm, lo, offsets, total, s_pad: int):
+    """Expansion pass: output position -> ``(build_row, probe_row, live)``
+    in the ``s_pad`` bucket, dead rows zeroed.
+
+    For output slot j the owning probe row is the last i with
+    ``offsets[i] <= j`` and a non-zero count: each emitting probe's id is
+    scattered at its output start and a running max fills its run
+    (:func:`_owner_recovery`). ``within = j - offsets[i]`` selects the
+    duplicate and ``perm[lo[i] + within]`` is the original build row.
+
+    The owner stream is monotone, so the ``offsets`` / ``lo`` lookups along
+    it ride one blocked-window pass; ``lo[i] + within`` jumps between
+    probes and takes the unwindowed route of :func:`gather_expand`."""
+    pp = offsets.shape[0]
+    total32 = total.to(torch.int32).reshape(1)
+    emits = torch.diff(offsets, append=total32) > 0
+    pidx = _owner_recovery(offsets, emits, s_pad)  # clamped to [0, pp)
+    j = _iota(s_pad, offsets.device)
+    offs_g, lo_g = gather_expand_multi([offsets, lo], pidx, windowed=True)
+    bpos = (lo_g + (j - offs_g)).clamp(0, perm.shape[0] - 1)
+    bidx = gather_expand(perm, bpos)
+    live = j < total32
+    zero = torch.zeros((), dtype=torch.int32, device=offsets.device)
+    return torch.where(live, bidx, zero), torch.where(live, pidx, zero), live
+
+
+def gather_columns(cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                   idx: torch.Tensor, live: torch.Tensor):
+    """Late materialization: ``(data[idx], valid[idx] & live)`` per
+    ``(data, valid)`` pair; padding output rows get ``valid = False`` so
+    they can never join or emit downstream. ``idx`` is int32 and in bounds
+    for every column; a column's two planes share one lookup pass."""
+    out = []
+    for data, valid in cols:
+        d, v = gather_expand_multi([data, valid], idx)
+        out.append((d, v & live))
+    return out
+
+
+def join_count_and_index(build_keys, build_valid, probe_keys, probe_valid):
+    """The two-phase join end to end: ``(bidx, pidx, live, total)`` with
+    ``total`` a Python int. Exactly one device-to-host sync (the
+    scalar total) picks the output bucket: count, then materialize."""
+    perm, lo, _counts, offsets, total_dev = join_count_impl(
+        build_keys, build_valid, probe_keys, probe_valid)
+    total = int(total_dev)
+    s_pad = bucket_size(total)
+    bidx, pidx, live = join_expand_impl(perm, lo, offsets, total_dev, s_pad)
+    return bidx, pidx, live, total

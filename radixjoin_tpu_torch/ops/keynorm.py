@@ -5,7 +5,8 @@ The reference compares keys as typed C++ values (src/execute.cpp:215,
 by content. On the device keys are compared as i64 bit patterns and
 dictionary ids, so the engine applies two normalizations:
 
-- :func:`canon_f64_bits`: FP64 keys as bitcast int64 tensors with -0.0
+- :func:`canon_f64_bits`: FP64 keys as bitcast int64 (tensors, or numpy
+  arrays on the host-staged spill path) with -0.0
   canonicalized to +0.0 and NaN keys invalidated;
 - :func:`joint_id_inverse`: two string dictionaries mapped onto one joint
   id space (exact ``np.unique`` merge) so id equality == byte equality.
@@ -19,13 +20,18 @@ F64_EXP = 0x7FF0000000000000
 F64_MANT = 0x000FFFFFFFFFFFFF
 
 
-def canon_f64_bits(bits: torch.Tensor, valid: torch.Tensor):
-    """FP64 join-key canonicalization on int64 bit-pattern tensors:
-    ``-0.0`` bits become ``+0.0`` bits so they compare equal, and NaN rows
-    are dropped from ``valid`` so NaN never matches. Returns
-    ``(canon_bits, valid)``."""
+def canon_f64_bits(bits, valid):
+    """FP64 join-key canonicalization on int64 bit patterns: ``-0.0`` bits
+    become ``+0.0`` bits so they compare equal, and NaN rows are dropped
+    from ``valid`` so NaN never matches. Returns ``(canon_bits, valid)``.
+
+    Takes tensors (the device paths) or numpy arrays (the spill path's
+    host-side keys), and answers in kind, bit for bit the same."""
     is_nan = ((bits & F64_EXP) == F64_EXP) & ((bits & F64_MANT) != 0)
-    canon = torch.where(bits == F64_SIGN, torch.zeros_like(bits), bits)
+    if isinstance(bits, np.ndarray):
+        canon = np.where(bits == F64_SIGN, np.int64(0), bits)
+    else:
+        canon = torch.where(bits == F64_SIGN, torch.zeros_like(bits), bits)
     return canon, valid & ~is_nan
 
 

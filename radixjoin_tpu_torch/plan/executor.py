@@ -6,20 +6,24 @@ radixjoin_tpu/plan/executor.py that the fused whole-plan executor uses).
 * the host-side strategy windows: the unique-scatter key window, the CSR
   index of a scan's key column, and the device-CSR window from a key's
   origin base column;
-* upload memos for host columns, paged columns and CSR indexes.
+* upload memos for host columns, paged columns and CSR indexes, charged
+  to the device's ledger (``engine.DeviceLedger``) and evicted under
+  memory pressure.
 
 The memos live on the port's own column objects and are keyed by
 ``(device, pad)``, so one process can run the same plan on the CPU and on
-the card, each from its own copies, and never shares state with the JAX
-package's objects.
+the card, each from its own copies and against its own ledger, and never
+shares state with the JAX package's objects.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
+from .. import hardware
 from ..dtypes import DataType
 from ..ops import join as join_ops
 from ..ops import kernels
@@ -87,9 +91,11 @@ def _unique_scatter_window(plan: Plan, j, battr: int, bpad: int, ppad: int):
 
 def _child_csr_index(plan: Plan, child_idx: int, attr: int, bpad: int,
                      ppad: int, device):
-    """``(base, counts_w, starts_w, grouped)`` on ``device`` over one
-    child's key column, or None when that child is not a base scan, the
-    key is not an integer, or the window is too sparse."""
+    """``((base, counts_w, starts_w, grouped), owner)`` on ``device`` over
+    one child's key column — ``owner`` is the host column whose memo (and
+    ledger entry) holds the index — or None when that child is not a base
+    scan, the key is not an integer, the window is too sparse or the
+    column has no CSR index."""
     child = plan.nodes[child_idx]
     if not isinstance(child.data, ScanNode):
         return None
@@ -102,25 +108,26 @@ def _child_csr_index(plan: Plan, child_idx: int, attr: int, bpad: int,
         r = join_ops.bucket_size(rng[1] - rng[0] + 1)
         if r > max(1 << 20, 32 * (bpad + ppad)):
             return None  # window too sparse vs the sort cost
-    return _csr_device(hcol, device)
+    index = _csr_device(hcol, device)
+    return None if index is None else (index, hcol)
 
 
 def _general_csr_index(plan: Plan, j, battr: int, pattr: int, bpad: int,
                        ppad: int, device):
-    """CSR index for a general join: ``(index, swapped)`` or None. Prefers
-    indexing the build child; when only the probe child is a base scan the
+    """CSR index for a general join: ``(index, swapped, owner)`` or None.
+    Prefers indexing the build child; when only the probe child is a base scan the
     roles swap (an inner join is a multiset, so which side is indexed is
     pure strategy)."""
     hit = _child_csr_index(
         plan, j.left if j.build_left else j.right, battr, bpad, ppad, device
     )
     if hit is not None:
-        return hit, False
+        return hit[0], False, hit[1]
     hit = _child_csr_index(
         plan, j.right if j.build_left else j.left, pattr, ppad, bpad, device
     )
     if hit is not None:
-        return hit, True
+        return hit[0], True, hit[1]
     return None
 
 
@@ -174,57 +181,131 @@ def _dev_csr_window(plan: Plan, j, battr: int, pattr: int, bpad: int,
 
 
 # ---------------------------------------------------------------------------
-# Upload memos (one upload per column object, device and pad)
+# Upload memos, charged to the device ledger
 # ---------------------------------------------------------------------------
+
+
+def _dev_col_bytes(dev) -> int:
+    return (dev.data.numel() * dev.data.element_size()
+            + dev.valid.numel() * dev.valid.element_size())
+
+
+#: per-owner upload serialization: threads racing one column's memo miss
+#: would both upload and double-charge the ledger. Striped by id(owner) —
+#: a collision only costs spurious serialization.
+_OWNER_LOCKS = [threading.Lock() for _ in range(64)]
+
+
+def _owner_lock(owner) -> threading.Lock:
+    return _OWNER_LOCKS[id(owner) % 64]
 
 
 def _memo_of(owner) -> dict:
     memo = getattr(owner, "_dev_memo", None)
     if memo is None:
-        memo = {}
-        object.__setattr__(owner, "_dev_memo", memo)
+        with _owner_lock(owner):
+            memo = getattr(owner, "_dev_memo", None)
+            if memo is None:
+                memo = {}
+                object.__setattr__(owner, "_dev_memo", memo)
     return memo
 
 
+def _memo_key_device(key) -> torch.device:
+    """The device of a memo key: ``(device, pad)`` for a column upload,
+    ``("csr", device)`` for a CSR index."""
+    return key[1] if key[0] == "csr" else key[0]
+
+
+def _cached_upload(eng, owner, key, device, make):
+    """The upload memos' shared protocol. ``make()`` uploads and returns
+    ``(value, nbytes)``; the value is kept in ``owner``'s memo under ``key``
+    and its bytes are charged to ``device``'s ledger.
+
+    A memo hit counts only if ``touch`` confirms the ledger entry is live:
+    touch token-protects it against eviction through the caller's query,
+    and a False touch is the only sign that the memo is stale (an eviction
+    drops the memo's references under the ledger's lock; a tensor has no
+    deleted state to ask for). The miss path first PINS the owner with a
+    zero-byte ``charge`` (serializing against an eviction in flight),
+    re-checks the memo, and only then uploads — no double upload, no
+    double charge.
+
+    A cached upload is read later from other CUDA streams (each plan of a
+    batch runs on its own), so the uploading stream is synchronized before
+    the value is published."""
+    ledger = eng.device_ledger(device)
+    memo = _memo_of(owner)
+    value = memo.get(key)  # .get: a concurrent eviction may pop the key
+    if value is not None and ledger.touch(owner):
+        return value
+    release = eng.column_cache_release(device)
+    with _owner_lock(owner):
+        ledger.charge(owner, 0, release)
+        value = memo.get(key)
+        if value is not None:
+            return value
+        value, nbytes = make()
+        if value is not None:
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+            memo[key] = value
+            ledger.charge(owner, nbytes, release)
+    return value
+
+
 def _device_column_cached(eng, hcol, pad: int, device):
-    """Dense upload of a host column, memoized per (device, pad)."""
-    memo = _memo_of(hcol)
-    key = (torch.device(device), pad)
-    if key not in memo:
-        memo[key] = eng.host_column_to_device(hcol, pad, device)
-    return memo[key]
+    """Dense upload of a host column, memoized per (device, pad) and
+    charged to the device ledger (evicted and re-uploaded under memory
+    pressure)."""
+    device = hardware.norm_device(device)
+
+    def make():
+        dev = eng.host_column_to_device(hcol, pad, device)
+        return dev, _dev_col_bytes(dev)
+
+    return _cached_upload(eng, hcol, (device, pad), device, make)
 
 
 def _paged_column_cached(eng, pcol, num_rows: int, pad: int, device):
     """Raw-page upload + device decode of an eager paged column, memoized
-    per (device, pad); None when the column is not eligible (see
-    ``engine.paged_column_to_device``)."""
+    per (device, pad) and charged to the device ledger; None when the
+    column is not eligible (see ``engine.paged_column_to_device``), which
+    is memoized too so the alignment scan of the page headers runs once."""
     from ..storage import device_decode as dd
 
     if not dd.enabled():
         return None
-    memo = _memo_of(pcol)
-    if memo.get("ineligible"):
+    if _memo_of(pcol).get("ineligible"):
         return None
-    key = (torch.device(device), pad)
-    if key not in memo:
+    device = hardware.norm_device(device)
+
+    def make():
         dev = eng.paged_column_to_device(pcol, num_rows, pad, device)
         if dev is None:
-            memo["ineligible"] = True
-            return None
-        memo[key] = dev
-    return memo[key]
+            _memo_of(pcol)["ineligible"] = True
+            return None, 0
+        return dev, _dev_col_bytes(dev)
+
+    return _cached_upload(eng, pcol, (device, pad), device, make)
 
 
 def _csr_device(hcol, device) -> Optional[tuple]:
     """A column's host-built CSR index (``HostColumn.csr_index``) uploaded
-    once per device: ``(base, counts_w, starts_w, grouped)`` with ``base``
-    a Python int, or None when the column has no CSR index."""
-    memo = _memo_of(hcol)
-    key = ("csr", torch.device(device))
-    if key not in memo:
+    once per device and charged to the device ledger: ``(base, counts_w,
+    starts_w, grouped)`` with ``base`` a Python int, or None when the
+    column has no CSR index (memoized as ``(None,)``)."""
+    from .. import engine as eng
+
+    device = hardware.norm_device(device)
+
+    def make():
         idx = hcol.csr_index()
-        memo[key] = None if idx is None else (idx[0],) + tuple(
-            torch.from_numpy(a).to(device) for a in idx[1:]
-        )
-    return memo[key]
+        if idx is None:
+            return (None,), 0
+        arrays = tuple(torch.from_numpy(a).to(device) for a in idx[1:])
+        return (idx[0],) + arrays, sum(
+            a.numel() * a.element_size() for a in arrays)
+
+    value = _cached_upload(eng, hcol, ("csr", device), device, make)
+    return None if value == (None,) else value

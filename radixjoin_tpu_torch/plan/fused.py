@@ -93,11 +93,17 @@ class FusedPlan:
         self.buckets = dict(buckets)
         self.scan_specs: Dict[int, _ScanSpec] = {}
         self.join_specs: Dict[int, _JoinSpec] = {}
+        #: a VARCHAR join key has no joint dictionary window: the structure
+        #: is incomplete and the engine takes the stepwise executor
+        self.has_varchar_key = False
         #: flat device column operands [(data, valid), ...]
         self.col_args: List[Tuple] = []
         #: per-join aux operands: scatter/dev_csr -> (base,) or
         #: (base, remap_b, remap_p) for VARCHAR keys; csr -> (base, c, s, g)
         self.aux_args: List[Tuple] = []
+        #: ledger owners (host / paged columns) whose memos back col_args
+        #: and aux_args; re-touched on every struct-cache hit (revalidate)
+        self.owners: List = []
         #: col_args id -> StringDict or None (dictionary provenance)
         self.dicts: List = []
         # node -> per-output-attr col_args id (for root dict lookup)
@@ -118,18 +124,19 @@ class FusedPlan:
                     if key not in packed:
                         # raw-page upload + device decode where aligned;
                         # host decode + dense upload otherwise
+                        owner = table.columns[col_idx]
                         dev = _ex._paged_column_cached(
-                            eng, table.columns[col_idx], table.num_rows,
-                            pad, self.device,
+                            eng, owner, table.num_rows, pad, self.device,
                         )
                         if dev is None:
+                            owner = table.to_host().columns[col_idx]
                             dev = _ex._device_column_cached(
-                                eng, table.to_host().columns[col_idx], pad,
-                                self.device,
+                                eng, owner, pad, self.device,
                             )
                         packed[key] = len(self.col_args)
                         self.col_args.append((dev.data, dev.valid))
                         self.dicts.append(dev.dictionary)
+                        self.owners.append(owner)
                     col_ids.append(packed[key])
                 self.scan_specs[idx] = _ScanSpec(pad, tuple(col_ids))
                 self.col_sources[idx] = tuple(col_ids)
@@ -156,11 +163,8 @@ class FusedPlan:
                     bchild, battr, pchild, pattr, pads[bchild], pads[pchild],
                 )
                 if hv is None:
-                    raise NotImplementedError(
-                        f"join node {idx}: VARCHAR key without a joint "
-                        "dictionary window needs the stepwise executor, "
-                        "not ported yet (ROADMAP.md, 'Fallback executors')"
-                    )
+                    self.has_varchar_key = True
+                    return  # the engine falls back to the stepwise executor
                 swapped, aux, r_pad = hv
                 strategy = "dev_csr_swapped" if swapped else "dev_csr"
                 aux_id = len(self.aux_args)
@@ -191,10 +195,11 @@ class FusedPlan:
                     self.device,
                 )
                 if csr is not None:
-                    aux, swapped = csr
+                    aux, swapped, owner = csr
                     strategy = "csr_swapped" if swapped else "csr"
                     aux_id = len(self.aux_args)
                     self.aux_args.append(aux)
+                    self.owners.append(owner)
                 elif key_dtype in (DataType.INT32, DataType.INT64):
                     dev_csr = _ex._dev_csr_window(
                         plan, j, battr, pattr, pads[bchild], pads[pchild],
@@ -241,6 +246,27 @@ class FusedPlan:
         self.join_order = [i for i in self.order if i in self.join_specs]
         self.root_pad = pads[plan.root]
 
+    def revalidate(self) -> bool:
+        """A struct-cache hit reuses device tensors resolved on an earlier
+        run. Re-touch their ledger owners under the caller's active
+        reservation token, which protects them from eviction for the rest
+        of this query. False means that an owner was evicted since (its
+        memo is gone and this structure holds the last references to the
+        old tensors): the caller rebuilds, and the rebuild re-resolves the
+        memos, uploading again what was evicted.
+
+        ``touch`` registers the caller's token atomically with the liveness
+        check (an eviction pops the entry and drops the memo under the same
+        ledger lock), so a True touch means the tensors are the memo's own
+        and stay so until the caller's reservation is released."""
+        from .. import engine as eng
+
+        ledger = eng.device_ledger(self.device)
+        ok = True
+        for owner in self.owners:
+            ok &= ledger.touch(owner)
+        return ok
+
     def strategies(self) -> Dict[int, str]:
         """Join node -> strategy chosen for it."""
         return {i: s.strategy for i, s in self.join_specs.items()}
@@ -260,6 +286,10 @@ class FusedPlan:
         if r_pad > (1 << 26):
             return None
         remaps = tuple(torch.from_numpy(r).to(self.device) for r in (ra, rb))
+        if self.device.type == "cuda":
+            # the structure is cached on the plan and may be run from
+            # another stream: publish the remaps only once they are there
+            torch.cuda.current_stream(self.device).synchronize()
         return ppad < bpad, (0,) + remaps, r_pad
 
 

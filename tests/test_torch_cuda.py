@@ -393,3 +393,154 @@ def test_merge_plan_on_card_matches_cpu(cuda_device, shape, monkeypatch):
     for a, b in zip(_sorted_rows(_columns(got)), _sorted_rows(_columns(want))):
         np.testing.assert_array_equal(a, b)
     assert launched["blocked_window_gather_multi"] > 0
+
+
+# ---------------------------------------------------------------------------
+# memory ledger, spill, stepwise and batch on the card
+# ---------------------------------------------------------------------------
+
+
+def _assert_same_rows(got, want):
+    assert got.num_rows == want.num_rows
+    for a, b in zip(_sorted_rows(_columns(got)), _sorted_rows(_columns(want))):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture
+def job_plans(cuda_device):
+    """S1 (eager pages), S2, S3 and F1 at a small scale, with their fused
+    results on the card, and the engine's caches and tallies reset."""
+    from radixjoin_tpu_torch import engine
+
+    tables = SyntheticIMDB(scale=0.002, seed=0).generate(sorted(
+        set(job_shapes.S1_TABLES + job_shapes.S2_TABLES)))
+    tables.update(job_shapes.f64_tables(20_000))
+    plans = {"s1": job_shapes.s1_plan(tables, lazy=False),
+             "s2": job_shapes.s2_plan(tables, lazy=True),
+             "s3": job_shapes.s3_plan(tables, lazy=True),
+             "f64": job_shapes.f64_plan(tables, lazy=True)}
+    ctx = rt.build_context()
+    fused_results = {n: rt.execute(p, ctx) for n, p in plans.items()}
+    engine.clear_device_caches()
+    engine.reset_engine_stats()
+    yield plans, fused_results, ctx
+    engine.clear_device_caches()
+    engine.reset_engine_stats()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["s1", "f64"])
+def test_stepwise_on_card_equals_fused(job_plans, shape, monkeypatch):
+    plans, fused_results, ctx = job_plans
+    monkeypatch.setenv("RJT_EXEC_MODE", "stepwise")
+    kernels.reset_launch_counts()
+    got = rt.execute(plans[shape], ctx)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    _assert_same_rows(got, fused_results[shape])
+    assert launched["blocked_window_gather_multi"] > 0
+    assert (launched["paged_window_gather"] > 0) == (shape == "s1")
+
+
+@pytest.mark.cuda
+def test_spill_on_card_equals_fused(job_plans, monkeypatch):
+    from radixjoin_tpu_torch import engine
+
+    plans, fused_results, ctx = job_plans
+    budget = engine._estimate_scan_bytes(plans["s2"]) // 4
+    monkeypatch.setenv("RJT_HBM_BUDGET_BYTES", str(budget))
+    kernels.reset_launch_counts()
+    got = rt.execute(plans["s2"], ctx)
+    torch.cuda.synchronize()
+    _assert_same_rows(got, fused_results["s2"])
+    assert engine.engine_stats()["admission_host_spills"] == 1
+    assert max(plans["s2"]._last_spill_partitions.values()) > 1
+    assert kernels.launch_counts()["blocked_window_gather_multi"] > 0
+
+
+@pytest.mark.cuda
+def test_eviction_returns_device_memory_to_baseline(job_plans, monkeypatch):
+    from radixjoin_tpu_torch import engine
+
+    plans, fused_results, ctx = job_plans
+    ledger = engine.device_ledger(ctx.device)
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    rt.execute(plans["s1"], ctx)
+    s1_pinned = ledger.pinned_bytes()
+    assert s1_pinned > 0
+    budget = max(engine._estimate_query_bytes(plans[n])
+                 for n in ("s1", "s3")) + s1_pinned // 2
+    monkeypatch.setenv("RJT_HBM_BUDGET_BYTES", str(budget))
+    evictions = ledger.stats["evictions"]
+    for shape in ("s1", "s3", "s1"):
+        _assert_same_rows(rt.execute(plans[shape], ctx), fused_results[shape])
+        assert ledger.pinned_bytes() <= budget
+    assert ledger.stats["evictions"] > evictions
+    assert engine.engine_stats()["admission_host_spills"] == 0
+    engine.clear_device_caches()
+    torch.cuda.synchronize()
+    assert ledger.pinned_bytes() == 0
+    assert abs(torch.cuda.memory_allocated() - baseline) <= 1 << 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tight", [False, True])
+def test_batch_on_card_equals_serial(job_plans, tight, monkeypatch):
+    from radixjoin_tpu_torch import engine
+
+    plans, fused_results, ctx = job_plans
+    names = list(plans) + list(plans)
+    if tight:
+        top = max(engine._estimate_query_bytes(p) for p in plans.values())
+        monkeypatch.setenv("RJT_HBM_BUDGET_BYTES", str(top + top // 4))
+    for _run in range(2):  # cold, then on warm caches and feedback
+        results = rt.execute_many([plans[n] for n in names], ctx)
+        torch.cuda.synchronize()
+        for name, got in zip(names, results):
+            _assert_same_rows(got, fused_results[name])
+    stats = engine.engine_stats()
+    assert all(stats[k] == 0 for k in engine.ENGINE_STATS)
+    assert not engine.device_ledger(ctx.device)._reservations
+
+
+@pytest.mark.cuda
+def test_out_of_memory_on_card_retries_once(job_plans, monkeypatch):
+    from radixjoin_tpu_torch import engine
+
+    plans, fused_results, ctx = job_plans
+    run = fused.run
+    calls = []
+
+    def failing(structure):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("injected: out of memory")
+        return run(structure)
+
+    monkeypatch.setattr(fused, "run", failing)
+    _assert_same_rows(rt.execute(plans["s1"], ctx), fused_results["s1"])
+    stats = engine.engine_stats()
+    assert stats["oom_retries"] == 1 and stats["oom_host_spills"] == 0
+
+
+@pytest.mark.cuda
+def test_partitioned_join_on_card_equals_cpu(cuda_device):
+    from radixjoin_tpu_torch.ops import radix
+
+    rng = np.random.default_rng(7)
+    nb, npr = 20_000, 150_000
+    bk = rng.integers(0, 9000, nb).astype(np.int64)
+    bv = rng.random(nb) > 0.1
+    pk = rng.integers(0, 12000, npr).astype(np.int32).astype(np.int64)
+    pv = rng.random(npr) > 0.1
+    for num_partitions in (1, 8):
+        got = radix.partitioned_join_indices(
+            bk, bv, pk, pv, num_partitions=num_partitions)
+        want = radix.partitioned_join_indices(
+            bk, bv, pk, pv, num_partitions=num_partitions, device="cpu")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    keys = torch.from_numpy(bk).to(cuda_device)
+    np.testing.assert_array_equal(
+        radix.bucket_of(keys, 16).cpu().numpy(), radix.bucket_of_np(bk, 16))
