@@ -75,12 +75,42 @@ Phases (any failure exits non-zero; the last line of standard output is
       ``torch.cuda.OutOfMemoryError`` (from here; the package has no such
       switch): ``oom_retries == 1``, result equal.
 
+6. The wave executor, the strategy knobs and the SQL entry point, on the
+   card, with the counters set to 0 just before and read just after:
+   a. S1, S2, S3 and F1 under ``RJT_EXEC_MODE=shared``, on fresh plan
+      objects over phase 3's tables, cold and warm: rows and per-join
+      totals equal to phase 3's fused results; per plan the ms beside the
+      fused warm ms, the shrink syncs and fetch rounds, the host syncs that
+      torch's sync debug mode saw in the warm run beside the tensors the
+      executor fetched, the ``path_stats()`` and ``sync_stats()`` deltas
+      and the peak device memory; all three engine kernels launched;
+   b. the VARCHAR-key query document in ``auto`` mode with the fused
+      lowering made to decline (from here): served by ``execute_shared``,
+      rows equal to the oracles';
+   c. the query documents of ``harness/job_shapes.py`` written to a
+      temporary directory and run through ``JobHarness`` over the
+      query-aware synthetic IMDB (filters applied by
+      ``ingest.filter_table``), with lazy inputs and with
+      ``RJT_EAGER_PAGES=on``: every result non-empty and equal to sqlite on
+      the rewritten SQL and to the same query on ``build_context("cpu")``;
+      equal to the row-by-row plan oracle where the plan's inputs hold
+      fewer than a million rows, and all of them again, through
+      ``verify_result`` (both oracles), at a tenth of the scale; the JOB
+      6a-shaped document on the wave executor under
+      ``RJT_SHRINK_MAX_SYNCS=2`` with the shrink's copy on and off (peak
+      device memory of both);
+   d. each knob against its default on S2 and S3 (``RJT_CSR_JOIN=off``,
+      ``RJT_DEV_CSR=off``, ``RJT_UNIQUE_JOIN=sort``, ``RJT_BIG_MERGE`` at
+      2^21 and 2^30, ``RJT_CARD_FEEDBACK=off``): rows equal, the
+      strategies the structure took, warm ms.
+
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-"pct_of_bound", "launches_memory_batch"}, ...]}`` (``launches`` counts
-phase 3 for the engine's three kernels and phase 4 for the others;
-``launches_memory_batch`` counts phase 5).
+"pct_of_bound", "launches_memory_batch", "launches_shared_sql"}, ...]}``
+(``launches`` counts phase 3 for the engine's three kernels and phase 4 for
+the others; ``launches_memory_batch`` counts phase 5 and
+``launches_shared_sql`` phase 6).
 """
 
 from __future__ import annotations
@@ -645,9 +675,11 @@ def run_main_path(torch, np, rt, kernels, args):
     for name, _build, _lazy in shapes:
         profile_warm(torch, rt, plans[name], ctx, name)
     return {
-        "launches": launches, "ctx": ctx, "plans": plans,
+        "launches": launches, "ctx": ctx, "plans": plans, "tables": tables,
+        "shapes": shapes,
         "names": [name for name, _build, _lazy in shapes],
         "warm": {name: results[(name, "warm")][0] for name in plans},
+        "totals": {name: results[(name, "warm")][1] for name in plans},
         "warm_ms": {name: wall_ms[(name, "warm")] for name in plans},
         "root_rows": root_rows,
     }
@@ -713,6 +745,16 @@ def run_devtime_path(torch, kernels, args):
 # ---------------------------------------------------------------------------
 
 
+def _timed_execute(torch, rt, plan, ctx):
+    """``(result, wall ms)`` of one ``execute``, the card idle before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rt.execute(plan, ctx)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
 class _Env:
     """Set environment variables for a ``with`` block."""
 
@@ -744,11 +786,7 @@ def run_memory_and_batch(torch, np, rt, kernels, main):
     mib = float(1 << 20)
 
     def timed_execute(plan):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = rt.execute(plan, ctx)
-        torch.cuda.synchronize()
-        return res, (time.perf_counter() - t0) * 1e3
+        return _timed_execute(torch, rt, plan, ctx)
 
     def check_rows(tag, name, res):
         if not _same_rows(np, res, warm[name]):
@@ -935,6 +973,308 @@ def run_memory_and_batch(torch, np, rt, kernels, main):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the wave executor, the strategy knobs, SQL to result
+# ---------------------------------------------------------------------------
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def run_shared_and_sql(torch, np, rt, kernels, main, args):
+    """Phase 6 (see the module docstring). Returns its launch counts."""
+    import tempfile
+    import warnings
+
+    from radixjoin_tpu_torch import engine
+    from radixjoin_tpu_torch.harness import datagen, job_shapes, oracle
+    from radixjoin_tpu_torch.harness import run as harness_run
+    from radixjoin_tpu_torch.plan import executor as wave
+    from radixjoin_tpu_torch.plan import fused as fz
+    from radixjoin_tpu_torch.sql import ParsedSQL
+
+    ctx, tables, warm = main["ctx"], main["tables"], main["warm"]
+    mib = float(1 << 20)
+
+    def timed_execute(plan):
+        return _timed_execute(torch, rt, plan, ctx)
+
+    engine.clear_device_caches()
+    engine.reset_engine_stats()
+    kernels.reset_launch_counts()
+
+    # 6a: the wave executor at full width
+    fetched = []
+    fetch = engine._fetch
+
+    def counting_fetch(tensors):
+        fetched.append(len(tensors))
+        return fetch(tensors)
+
+    for name, build, lazy in main["shapes"]:
+        plan = build(tables, lazy=lazy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        paths, syncs = wave.path_stats(), wave.sync_stats()
+        line = []
+        with _Env(RJT_EXEC_MODE="shared"):
+            for run in ("cold", "warm"):
+                seen = []
+                del fetched[:]
+                engine._fetch = counting_fetch
+                torch.cuda.set_sync_debug_mode("warn" if run == "warm"
+                                               else "default")
+                try:
+                    with warnings.catch_warnings(record=True) as seen:
+                        warnings.simplefilter("always")
+                        res, ms = timed_execute(plan)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    engine._fetch = fetch
+                if plan._last_join_totals != main["totals"][name]:
+                    _fail(f"6a shared {name} {run}: per-join totals "
+                          f"{plan._last_join_totals} != fused "
+                          f"{main['totals'][name]}")
+                if not _same_rows(np, res, warm[name]):
+                    _fail(f"6a shared {name} {run}: rows differ from the "
+                          f"fused result of phase 3")
+                if getattr(plan, "_fused_struct_cache", None) is not None:
+                    _fail(f"6a shared {name}: a fused structure was built")
+                stats = plan._last_exec_stats
+                line.append(
+                    f"{run} {ms:.1f} ms ({stats['shrink_syncs']} shrink "
+                    f"syncs, {stats['rounds']} fetch rounds, dispatch "
+                    f"{stats['dispatch_ms']:.1f} ms)")
+                if run == "warm":
+                    n_sync = sum("synchroniz" in str(w.message) for w in seen)
+                    line.append(f"host syncs seen by torch's sync debug mode "
+                                f"{n_sync} for {sum(fetched)} fetched "
+                                f"tensors")
+                    if stats["shrink_syncs"]:
+                        _fail(f"6a shared {name}: a warm run on the feedback "
+                              f"made {stats['shrink_syncs']} shrink syncs")
+                    if n_sync > sum(fetched) + 1:  # + torch.cuda.synchronize
+                        _fail(f"6a shared {name}: {n_sync} host syncs for "
+                              f"{sum(fetched)} fetched tensors")
+                elif stats["shrink_syncs"] > 1:
+                    _fail(f"6a shared {name}: {stats['shrink_syncs']} shrink "
+                          f"syncs in one run")
+        _log(f"6a shared {name}: " + ", ".join(line)
+             + f"; fused warm {main['warm_ms'][name]:.1f} ms; paths "
+             f"{json.dumps(_delta(wave.path_stats(), paths))}, syncs "
+             f"{json.dumps(_delta(wave.sync_stats(), syncs))}, peak device "
+             f"memory {torch.cuda.max_memory_allocated() / mib:.1f} MiB, "
+             f"{res.num_rows} rows and per-join totals equal to the fused "
+             f"result")
+        del plan, res
+    launches_6a = kernels.launch_counts()
+    _log(f"6a shared kernel launches: {json.dumps(launches_6a)}")
+    if not all(launches_6a[k] > 0 for k in MAIN_PATH_KERNELS):
+        _fail(f"6a shared: a kernel of the path was not launched: "
+              f"{launches_6a}")
+
+    # 6c set-up: the query documents and their query-aware data
+    docs = job_shapes.QUERY_DOCUMENTS
+    sqls = [docs[name][0] for name in docs]
+    used = sorted({e.table for sql in sqls
+                   for e in ParsedSQL(sql).alias_map.values()})
+    tmp = tempfile.TemporaryDirectory(prefix="rjt_query_documents_")
+    plans_path = job_shapes.write_query_documents(tmp.name)
+    t0 = time.perf_counter()
+    imdb = datagen.SyntheticIMDB(scale=args.scale, seed=args.seed,
+                                 queries=sqls).generate()
+    t1 = time.perf_counter()
+    sqlite = oracle.SqliteOracle({n: imdb[n] for n in used})
+    _log(f"6c: {len(docs)} query documents written, query-aware datagen at "
+         f"scale {args.scale} in {t1 - t0:.1f} s, sqlite over {len(used)} "
+         f"tables ({sum(imdb[n].num_rows for n in used)} rows) loaded in "
+         f"{time.perf_counter() - t1:.1f} s")
+    source = harness_run.TableSource(host_tables=imdb)
+    on_card = harness_run.JobHarness(plans_path, source)
+    on_cpu = harness_run.JobHarness(plans_path, source, device="cpu")
+    if on_card.context.device.type != "cuda":
+        _fail("6c: the harness did not take the card by default")
+
+    # 6b: the declined plan goes to the wave executor in auto mode
+    name = job_shapes.VARCHAR_KEY_QUERY
+    shared_calls = []
+    run_shared = wave.execute_shared
+    lowering = fz.FusedPlan._varchar_dev_csr
+
+    def counting_shared(*a):
+        shared_calls.append(1)
+        return run_shared(*a)
+
+    fz.FusedPlan._varchar_dev_csr = lambda self, *a: None
+    wave.execute_shared = counting_shared
+    paths = wave.path_stats()
+    try:
+        parsed, plan = on_card.build_plan(name)
+        declined, ms = timed_execute(plan)
+    finally:
+        fz.FusedPlan._varchar_dev_csr = lowering
+        wave.execute_shared = run_shared
+    correct, detail = harness_run.verify_result(parsed, plan, declined,
+                                                sqlite)
+    if shared_calls != [1] or not correct or declined.num_rows == 0:
+        _fail(f"6b declined plan: execute_shared calls {shared_calls}, "
+              f"{declined.num_rows} rows, verify {correct} ({detail})")
+    _log(f"6b declined plan {name}: the fused structure declined the "
+         f"VARCHAR key, auto mode served it by execute_shared in {ms:.1f} "
+         f"ms, paths {json.dumps(_delta(wave.path_stats(), paths))}, "
+         f"{declined.num_rows} rows equal to the row oracle and sqlite")
+
+    # 6c: SQL to result, lazy inputs and eager pages
+    small_limit = 1_000_000
+    expected, sql_rows = {}, {}
+    for eager in ("off", "on"):
+        before = kernels.launch_counts()
+        with _Env(RJT_EAGER_PAGES=eager):
+            for name in docs:
+                parsed, plan = on_card.build_plan(name)
+                res, ms = timed_execute(plan)
+                again, warm_ms = timed_execute(plan)
+                actual = res.to_host().to_rows()
+                if res.num_rows == 0:
+                    _fail(f"6c {name}: empty result, nothing checked")
+                if name not in sql_rows:
+                    sql_rows[name] = sqlite.query(parsed.executed_sql())
+                    n_in = sum(t.num_rows for t in plan.inputs)
+                    if n_in < small_limit:
+                        t1 = time.perf_counter()
+                        expected[name] = oracle.execute_plan_rows(plan)
+                        _log(f"6c {name}: row oracle over {n_in} input rows "
+                             f"in {time.perf_counter() - t1:.1f} s")
+                checks = ["sqlite"]
+                ok, detail = oracle.rows_equal(actual, sql_rows[name])
+                if ok and name in expected:
+                    checks.append("row oracle")
+                    ok, detail = oracle.rows_equal(actual, expected[name])
+                if not ok:
+                    _fail(f"6c {name} (eager pages {eager}): {detail}")
+                _parsed, cpu_plan = on_cpu.build_plan(name)
+                cpu_res = rt.execute(cpu_plan, on_cpu.context)
+                if not (_same_rows(np, res, cpu_res)
+                        and _same_rows(np, again, cpu_res)):
+                    _fail(f"6c {name} (eager pages {eager}): rows differ "
+                          f"from the cpu route")
+                _log(f"6c {name} (eager pages {eager}): cold {ms:.1f} ms, "
+                     f"warm {warm_ms:.1f} ms, {res.num_rows} rows equal to "
+                     f"{', '.join(checks)} and the cpu route; inputs "
+                     f"{[t.num_rows for t in plan.inputs]}, strategies "
+                     f"{sorted(plan._fused_struct_cache[1].strategies().values())}")
+        rose = _delta(kernels.launch_counts(), before)
+        _log(f"6c (eager pages {eager}) kernel launches: {json.dumps(rose)}")
+        if eager == "on" and not rose.get("paged_window_gather"):
+            _fail("6c: eager pages did not reach the paged decode kernel")
+
+    # all five documents through verify_result (row oracle and sqlite) at a
+    # tenth of the scale, where the row-by-row oracle finishes every query
+    small_scale = args.scale / 10
+    small = datagen.SyntheticIMDB(scale=small_scale, seed=args.seed,
+                                  queries=sqls).generate()
+    small_sqlite = oracle.SqliteOracle({n: small[n] for n in used})
+    small_harness = harness_run.JobHarness(
+        plans_path, harness_run.TableSource(host_tables=small))
+    for mode in ("auto", "shared"):
+        t1 = time.perf_counter()
+        with _Env(RJT_EXEC_MODE=mode):
+            for name in docs:
+                res, _ms, correct, detail = small_harness.run_query(
+                    name, verify=True, sqlite_oracle=small_sqlite)
+                if not correct or res.num_rows == 0:
+                    _fail(f"6c {name} at scale {small_scale} ({mode}): "
+                          f"{res.num_rows} rows, {detail}")
+        _log(f"6c at scale {small_scale}, mode {mode}: all {len(docs)} "
+             f"documents verified by verify_result (row oracle and sqlite) "
+             f"in {time.perf_counter() - t1:.1f} s")
+
+    # the shrink's copy: a compacted node shrunk mid-plan frees its bucket
+    name = "q6a"
+    for copy in (True, False):
+        _parsed, plan = on_card.build_plan(name)
+        syncs = wave.sync_stats()
+        wave.SHRINK_COPY = copy
+        try:
+            # a second sync, so that the wave of the cast_info join (a
+            # bucket of cast_info's pad for a few thousand rows) is synced
+            with _Env(RJT_EXEC_MODE="shared", RJT_SHRINK_MAX_SYNCS=2):
+                rt.execute(plan, ctx)  # uploads cached; buckets still unknown
+                del plan._learned_buckets
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                res, ms = timed_execute(plan)
+        finally:
+            wave.SHRINK_COPY = True
+        ok, detail = oracle.rows_equal(res.to_host().to_rows(),
+                                       sql_rows[name])
+        if not ok:
+            _fail(f"6c {name} on the wave executor: {detail}")
+        _log(f"6c {name} on the wave executor, shrink "
+             f"{'copies' if copy else 'keeps views'}: {ms:.1f} ms, peak "
+             f"device memory {torch.cuda.max_memory_allocated() / mib:.1f} "
+             f"MiB over {base / mib:.1f} MiB held before the run, syncs of "
+             f"the two runs {json.dumps(_delta(wave.sync_stats(), syncs))}, "
+             f"rows equal to sqlite")
+    on_card.close()
+    on_cpu.close()
+    small_harness.close()
+    tmp.cleanup()
+    del imdb, small, sqlite, small_sqlite, source
+
+    # 6d: each knob against its default, inside whole plans
+    knobs = [("default", {}),
+             ("RJT_CSR_JOIN=off", {"RJT_CSR_JOIN": "off"}),
+             ("RJT_DEV_CSR=off", {"RJT_DEV_CSR": "off"}),
+             ("RJT_UNIQUE_JOIN=sort", {"RJT_UNIQUE_JOIN": "sort"}),
+             ("RJT_BIG_MERGE=2^21", {"RJT_BIG_MERGE": 1 << 21}),
+             ("RJT_BIG_MERGE=2^30", {"RJT_BIG_MERGE": 1 << 30}),
+             ("RJT_CARD_FEEDBACK=off", {"RJT_CARD_FEEDBACK": "off"})]
+    routes = {}
+    for name in ("S2", "S3"):
+        build, lazy = {n: (b, z) for n, b, z in main["shapes"]}[name]
+        for label, env in knobs:
+            plan = build(tables, lazy=lazy)
+            with _Env(**env):
+                res, cold_ms = timed_execute(plan)
+                again, warm_ms = timed_execute(plan)
+            if not (_same_rows(np, res, warm[name])
+                    and _same_rows(np, again, warm[name])):
+                _fail(f"6d {name} under {label}: rows differ from phase 3")
+            took = plan._fused_struct_cache[1].strategies()
+            routes[(name, label)] = sorted(took.values())
+            _log(f"6d {name} under {label}: strategies "
+                 f"{json.dumps(took)}, cold {cold_ms:.1f} ms, warm "
+                 f"{warm_ms:.1f} ms, feedback "
+                 f"{'kept' if hasattr(plan, '_learned_buckets') else 'none'}"
+                 f", rows equal")
+            del plan, res, again
+    moved = {
+        ("S2", "RJT_CSR_JOIN=off"), ("S2", "RJT_UNIQUE_JOIN=sort"),
+        ("S2", "RJT_BIG_MERGE=2^21"), ("S3", "RJT_UNIQUE_JOIN=sort"),
+        ("S3", "RJT_BIG_MERGE=2^30"),
+    }
+    for key in moved:
+        if routes[key] == routes[(key[0], "default")]:
+            _fail(f"6d {key[0]}: {key[1]} did not change the route "
+                  f"{routes[key]}")
+    check = engine.engine_stats()
+    if any(check[k] for k in engine.ENGINE_STATS):
+        _fail(f"phase 6: a degradation tally rose: {check}")
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    _log(f"wave executor and SQL path kernel launches: "
+         f"{json.dumps(launches)}")
+    if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS):
+        _fail(f"a kernel of the wave executor and SQL path was not "
+              f"launched: {launches}")
+    return launches
+
+
 def profile_warm(torch, rt, plan, ctx, name: str) -> None:
     """Where a warm run's time goes: the fused run with its fetches and
     root decode, the result page encode, and the device's busy time from
@@ -1040,6 +1380,9 @@ def main() -> None:
     # phase 5: memory and batch, counted
     mb_launches = run_memory_and_batch(torch, np, rt, kernels, main_path)
     phase_done("phase 5 (memory and batch)")
+    # phase 6: the wave executor, the knobs, SQL to result, counted
+    sq_launches = run_shared_and_sql(torch, np, rt, kernels, main_path, args)
+    phase_done("phase 6 (wave executor, knobs, SQL to result)")
     _log(f"card: {smi}")
 
     meta = {
@@ -1071,6 +1414,7 @@ def main() -> None:
             "library_ms": rec["library_ms"],
             "pct_of_bound": rec["pct_of_bound"],
             "launches_memory_batch": mb_launches[name],
+            "launches_shared_sql": sq_launches[name],
         })
         _log(f"{name}: the times below are at {rec['shape']}; bound from "
              f"{rec['bound_bytes']} bytes at {HBM_BYTES_PER_S / 1e9:.0f} "

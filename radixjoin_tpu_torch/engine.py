@@ -34,11 +34,13 @@ ops/radix.py); a ``torch.cuda.OutOfMemoryError`` drops the idle caches and
 retries, and after the third failure spills the same way. Every such
 degradation is tallied (:func:`engine_stats`); no other exception is
 caught. A plan the fused structure declines (a VARCHAR key with no joint
-dictionary window) runs on the stepwise executor (:func:`execute_device`),
-as does every plan under ``RJT_EXEC_MODE=stepwise``; ``RJT_EXEC_MODE`` is
-``auto`` (default), ``fused`` or ``stepwise``. :func:`execute_many` is the
-batch form: every admitted plan is dispatched on its own CUDA stream
-before any result is consumed.
+dictionary window) runs on the wave executor (plan/executor.py
+``execute_shared``), as does every plan under ``RJT_EXEC_MODE=shared``;
+``RJT_EXEC_MODE=stepwise`` runs the stepwise executor
+(:func:`execute_device`), which is also the last resort. ``RJT_EXEC_MODE``
+is ``auto`` (default), ``fused``, ``shared`` or ``stepwise``.
+:func:`execute_many` is the batch form: every admitted plan is dispatched
+on its own CUDA stream before any result is consumed.
 """
 
 from __future__ import annotations
@@ -765,6 +767,7 @@ def _fused_attempts(plan: Plan, context: Context):
     re-runs uncompacted. On success the exact buckets are kept on the plan
     object as cardinality feedback for its next execution, and the root's
     live rows (``[:root_total]``, exact) are asked for and decoded."""
+    from .plan import executor as _exec
     from .plan import fused as fz
 
     register_device_cache_plan(plan)
@@ -772,7 +775,10 @@ def _fused_attempts(plan: Plan, context: Context):
     buckets: dict = {}
     root_node = plan.nodes[plan.root]
     unique_joins = _detect_unique_joins(plan)
-    learned = getattr(plan, "_learned_buckets", None)
+    feedback_on = _exec.card_feedback_on()
+    learned = getattr(plan, "_learned_buckets", None) if feedback_on else None
+    # a structure built under other knob values must not be served
+    knobs = _exec.strategy_knobs()
     if learned:
         for i, (pad, was_compacted) in learned.items():
             if was_compacted:
@@ -781,6 +787,7 @@ def _fused_attempts(plan: Plan, context: Context):
     for _attempt in range(len(plan.nodes) + 2):
         state_key = (
             device,
+            knobs,
             tuple(sorted(buckets.items())),
             tuple(sorted(learned.items())) if learned else None,
             frozenset(no_compact),
@@ -799,7 +806,7 @@ def _fused_attempts(plan: Plan, context: Context):
             )
             plan._fused_struct_cache = (state_key, structure)
         if structure.has_varchar_key:
-            return None  # the caller falls back to the stepwise executor
+            return None  # the caller falls back to the wave executor
         out_values_dev, out_valid_dev, totals_dev = fz.run(structure)
         (totals,) = yield [totals_dev]
 
@@ -847,14 +854,15 @@ def _fused_attempts(plan: Plan, context: Context):
         plan._last_join_totals = {
             node_id: int(totals[ji]) for ji, node_id in enumerate(join_order)
         }
-        plan._learned_buckets = {
-            node_id: (
-                join_ops.bucket_size(int(totals[ji])),
-                structure.join_specs[node_id].strategy
-                not in ("unique_scatter", "unique_sort"),
-            )
-            for ji, node_id in enumerate(join_order)
-        }
+        if feedback_on:
+            plan._learned_buckets = {
+                node_id: (
+                    join_ops.bucket_size(int(totals[ji])),
+                    structure.join_specs[node_id].strategy
+                    not in ("unique_scatter", "unique_sort"),
+                )
+                for ji, node_id in enumerate(join_order)
+            }
 
         # bounded root fetch: only the live rows cross to the host
         k = len(out_values_dev)
@@ -1044,14 +1052,9 @@ def _hbm_budget(context: Context) -> int:
 
 def _exec_mode() -> str:
     mode = os.environ.get("RJT_EXEC_MODE", "auto")
-    if mode == "shared":
-        raise NotImplementedError(
-            "RJT_EXEC_MODE=shared: the shape-shared wave executor is not "
-            "ported yet (ROADMAP.md, Queue 1, 'Wave executor')"
-        )
-    if mode not in ("auto", "fused", "stepwise"):
-        raise ValueError(f"RJT_EXEC_MODE={mode!r}: expected auto, fused or "
-                         "stepwise")
+    if mode not in ("auto", "fused", "shared", "stepwise"):
+        raise ValueError(f"RJT_EXEC_MODE={mode!r}: expected auto, fused, "
+                         "shared or stepwise")
     return mode
 
 
@@ -1062,9 +1065,10 @@ def execute(plan: Plan, context: Optional[Context] = None) -> ColumnarTable:
     Runs the fused whole-plan executor when the working set fits the
     device budget, inside a ledger reservation that evicts idle cached
     uploads to make room; spills to the host-staged multi-pass radix
-    executor when the scan inputs alone exceed the budget. The stepwise
+    executor when the scan inputs alone exceed the budget. The wave
     executor serves the rare plan the fused structure declines (a VARCHAR
-    key with no joint dictionary window). ``torch.cuda.OutOfMemoryError``
+    key with no joint dictionary window) and ``RJT_EXEC_MODE=shared``; the
+    stepwise executor is the last resort. ``torch.cuda.OutOfMemoryError``
     is the one exception caught: idle caches are dropped and the plan is
     retried, twice, before it spills; every such step is tallied
     (:func:`engine_stats`)."""
@@ -1077,11 +1081,19 @@ def execute(plan: Plan, context: Optional[Context] = None) -> ColumnarTable:
     ledger = device_ledger(device)
 
     def _run_on_device() -> HostTable:
+        from .plan import executor
+
         host = None
         if mode in ("auto", "fused"):
             host = _execute_fused(plan, context)
+        if host is None and mode != "stepwise":
+            # shared mode, or the fused structure declined the plan (a
+            # VARCHAR key it cannot window): the wave executor unifies the
+            # dictionaries itself
+            host = executor.execute_shared(
+                plan, _detect_unique_joins(plan), device)
+            context.last_exec_stats = plan._last_exec_stats
         if host is None:
-            # stepwise mode, or the fused structure declined the plan
             host = device_table_to_host(execute_device(plan, context))
         return host
 
@@ -1179,8 +1191,10 @@ def execute_many(
     device work, transfers and the host's decode and page encode overlap
     instead of serializing. Plans are admitted cheapest first under the
     same budget as ``execute``; one that does not fit next to the in-flight
-    set waits for a drain round. Plans the fused structure declines, or
-    whose inputs exceed the budget, fall back to :func:`execute`. Results
+    set waits for a drain round. Plans the fused structure declines, whose
+    inputs exceed the budget or that ran out of memory fall back to
+    :func:`execute` (its wave executor, spill and out-of-memory ladder,
+    which tallies its own retries) on the caller's stream. Results
     are identical to per-plan ``execute`` calls, in input order.
     """
     if context is None:
@@ -1230,7 +1244,6 @@ def execute_many(
             oom = True  # handled below, once the traceback is gone
         if oom:
             gen.close()
-            _tally("oom_retries", plans[idx])
             _release(idx)
             clear_device_caches()
             fallbacks.append(idx)  # retried through execute()'s ladder

@@ -18,7 +18,8 @@ Joins lower exactly like the reference's fast paths:
   VARCHAR keys join this way too, over a unified dictionary id space;
 * ``merge`` — the single-sort merge join with sort-carried payloads, for
   FP64 keys, integer key windows too sparse for a CSR index, and general
-  joins whose combined pad (build + probe) reaches ``BIG_MERGE_PAD``.
+  joins whose combined pad (build + probe) reaches ``RJT_BIG_MERGE``
+  (default ``BIG_MERGE_PAD``).
 
 Join output cardinalities are data-dependent, so every general join writes
 into a static pow2 bucket; the run returns exact per-join totals, the
@@ -40,8 +41,20 @@ from .ir import Plan, ScanNode
 from . import executor as _ex
 
 #: combined pad (build + probe) from which general joins take the merge
-#: path, as in the reference (radixjoin_tpu/plan/fused.py _big_merge)
+#: path, as in the reference (radixjoin_tpu/plan/fused.py _big_merge): the
+#: default that ``RJT_BIG_MERGE`` overrides
 BIG_MERGE_PAD = 1 << 23
+
+
+def big_merge_pad() -> int:
+    """``RJT_BIG_MERGE``: the least combined pad (build + probe) that sends
+    a general join to the merge path; 0 disables the reroute."""
+    return _ex._int_knob("RJT_BIG_MERGE", BIG_MERGE_PAD)
+
+
+def _big_merge(bpad: int, ppad: int) -> bool:
+    thr = big_merge_pad()
+    return thr > 0 and (bpad + ppad) >= thr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +197,7 @@ class FusedPlan:
                     self.aux_args.append((base,))
                 else:
                     strategy = "unique_sort"
-            elif pads[bchild] + pads[pchild] >= BIG_MERGE_PAD:
+            elif _big_merge(pads[bchild], pads[pchild]):
                 # huge pads: the CSR paths' window and payload lookups run
                 # at probe/output size, the merge join is one sort with
                 # sort-carried payloads; the strategy stays "merge"

@@ -374,7 +374,7 @@ def test_cuda_onehot_gather_matches_plain(cuda_device):
 def test_merge_plan_on_card_matches_cpu(cuda_device, shape, monkeypatch):
     if shape == "s3":
         # at this scale the root's combined pad is far below 2^23
-        monkeypatch.setattr(fused, "BIG_MERGE_PAD", 1 << 12)
+        monkeypatch.setenv("RJT_BIG_MERGE", str(1 << 12))
         tables = SyntheticIMDB(scale=0.002, seed=0).generate(
             list(job_shapes.S3_TABLES))
         build = job_shapes.s3_plan
@@ -544,3 +544,207 @@ def test_partitioned_join_on_card_equals_cpu(cuda_device):
     keys = torch.from_numpy(bk).to(cuda_device)
     np.testing.assert_array_equal(
         radix.bucket_of(keys, 16).cpu().numpy(), radix.bucket_of_np(bk, 16))
+
+
+# ---------------------------------------------------------------------------
+# the wave executor and the SQL entry point on the card
+# ---------------------------------------------------------------------------
+
+
+def _random_plan(rng):
+    """A left-deep plan over 3 or 4 generated tables: a key column of a
+    type drawn per plan (INT32, INT64, FP64 or VARCHAR; duplicates, NULLs)
+    and an INT64 payload each, joined on the key with random build sides."""
+    from radixjoin_tpu_torch.dtypes import DataType
+    from radixjoin_tpu_torch.plan.ir import Plan
+    from radixjoin_tpu_torch.storage.columnar import (ColumnarTable,
+                                                      HostColumn, HostTable)
+
+    kind = [DataType.INT32, DataType.INT64, DataType.FP64,
+            DataType.VARCHAR][int(rng.integers(0, 4))]
+    plan = Plan()
+    scans = []
+    for _t in range(int(rng.integers(3, 5))):
+        n = int(rng.integers(50, 3000))
+        keys = rng.integers(0, int(rng.integers(20, 400)), n)
+        valid = rng.random(n) >= 0.1
+        if kind is DataType.VARCHAR:
+            words = np.array([b"k%d" % k for k in keys], dtype=object)
+            key_col = HostColumn(kind, words, valid)
+        elif kind is DataType.FP64:
+            key_col = HostColumn(kind, keys * 0.5, valid)
+        else:
+            key_col = HostColumn(kind, keys.astype(kind.numpy_dtype), valid)
+        payload = HostColumn(DataType.INT64,
+                             rng.integers(-(1 << 40), 1 << 40, n),
+                             rng.random(n) >= 0.2)
+        table = ColumnarTable.from_host(HostTable(n, [key_col, payload]),
+                                        lazy=bool(rng.integers(0, 2)))
+        scans.append(plan.new_scan_node(
+            plan.new_input(table), [(0, kind), (1, DataType.INT64)]))
+    node, width = scans[0], 2
+    for scan in scans[1:]:
+        # the left key, the left payloads, the right payload
+        attrs = [(0, kind)] + [(c, DataType.INT64) for c in range(1, width)]
+        attrs.append((width + 1, DataType.INT64))
+        node = plan.new_join_node(bool(rng.integers(0, 2)), node, scan, 0, 0,
+                                  attrs)
+        width = len(attrs)
+    plan.root = node
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["s1", "s2", "s3", "f64"])
+def test_shared_mode_on_card_equals_fused_and_cpu(job_plans, shape,
+                                                  monkeypatch):
+    """The wave executor on the card: cold and warm equal to the fused
+    result and to the wave executor on the CPU, per-join totals included;
+    the warm run makes no shrink sync and no host sync beyond its
+    fetches."""
+    import warnings
+
+    from radixjoin_tpu_torch import engine
+    from radixjoin_tpu_torch.plan import executor as wave
+
+    plans, fused_results, ctx = job_plans
+    plan = plans[shape]
+    fused_totals = dict(plan._last_join_totals)
+    plan._fused_struct_cache = None
+    del plan._learned_buckets
+    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
+    monkeypatch.setenv("RJT_SHRINK_MIN_PAD", "2048")
+    kernels.reset_launch_counts()
+    cold = rt.execute(plan, ctx)
+    assert plan._last_exec_stats["shrink_syncs"] <= 1
+    fetched = []
+    fetch = engine._fetch
+    monkeypatch.setattr(engine, "_fetch",
+                        lambda ts: fetched.append(len(ts)) or fetch(ts))
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            warm = rt.execute(plan, ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    print(f"{shape}: {len(syncs)} host syncs for {sum(fetched)} fetched "
+          f"tensors in {len(fetched)} rounds")
+    assert len(syncs) <= sum(fetched)
+    assert plan._last_exec_stats["shrink_syncs"] == 0
+    assert plan._last_exec_stats["rounds"] == len(fetched) == 2
+    launched = kernels.launch_counts()
+    for got in (cold, warm):
+        _assert_same_rows(got, fused_results[shape])
+    assert plan._last_join_totals == fused_totals
+    assert getattr(plan, "_fused_struct_cache", None) is None
+    assert launched["blocked_window_gather_multi"] > 0
+    # F1 is one merge join: its lookups all ride the blocked-window kernel
+    assert (launched["window_gather"] > 0) == (shape != "f64")
+    assert (launched["paged_window_gather"] > 0) == (shape == "s1")
+    paths = wave.path_stats()
+    assert sum(paths.values()) > 0
+    # the CPU route runs the same plan object (its own uploads and ledger)
+    on_cpu = rt.execute(plan, rt.build_context("cpu"))
+    _assert_same_rows(on_cpu, warm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_shared_mode_on_card_random_plans(cuda_device, seed, monkeypatch):
+    rng = np.random.default_rng(7000 + seed)
+    plan = _random_plan(rng)
+    cpu = rt.build_context("cpu")
+    monkeypatch.setenv("RJT_EXEC_MODE", "fused")
+    want = rt.execute(plan, cpu)
+    fused_totals = dict(plan._last_join_totals)
+    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
+    del plan._learned_buckets
+    ctx = rt.build_context()
+    for _run in ("cold", "warm"):
+        got = rt.execute(plan, ctx)
+        _assert_same_rows(got, want)
+        assert plan._last_join_totals == fused_totals
+    _assert_same_rows(rt.execute(plan, cpu), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eager", ["off", "on"])
+def test_query_documents_through_the_harness_on_card(cuda_device, eager,
+                                                     tmp_path, monkeypatch):
+    """SQL text and EXPLAIN document to a verified result on the card:
+    every query document through ``JobHarness``, checked by
+    ``verify_result`` against the row oracle and sqlite, in ``auto`` and in
+    ``shared`` mode; with eager pages the scans decode on the card."""
+    from radixjoin_tpu_torch.harness import datagen, oracle
+    from radixjoin_tpu_torch.harness import run as harness_run
+
+    monkeypatch.setenv("RJT_EAGER_PAGES", eager)
+    docs = job_shapes.QUERY_DOCUMENTS
+    path = job_shapes.write_query_documents(str(tmp_path))
+    tables = datagen.SyntheticIMDB(
+        scale=0.004, seed=0, queries=[docs[n][0] for n in docs]).generate()
+    sqlite = oracle.SqliteOracle(tables)
+    harness = harness_run.JobHarness(
+        path, harness_run.TableSource(host_tables=tables))
+    assert harness.context.device.type == "cuda"
+    kernels.reset_launch_counts()
+    for mode in ("auto", "shared"):
+        monkeypatch.setenv("RJT_EXEC_MODE", mode)
+        for name in docs:
+            result, _ms, correct, detail = harness.run_query(
+                name, verify=True, sqlite_oracle=sqlite)
+            assert correct, (name, mode, detail)
+            assert result.num_rows > 0, name
+    launched = kernels.launch_counts()
+    assert launched["window_gather"] > 0
+    assert launched["blocked_window_gather_multi"] > 0
+    assert (launched["paged_window_gather"] > 0) == (eager == "on")
+    harness.close()
+
+
+@pytest.mark.cuda
+def test_declined_plan_on_card_goes_to_the_wave_executor(cuda_device,
+                                                         tmp_path,
+                                                         monkeypatch):
+    from radixjoin_tpu_torch.harness import datagen, oracle
+    from radixjoin_tpu_torch.harness import run as harness_run
+    from radixjoin_tpu_torch.plan import executor as wave
+
+    docs = job_shapes.QUERY_DOCUMENTS
+    path = job_shapes.write_query_documents(str(tmp_path))
+    tables = datagen.SyntheticIMDB(
+        scale=0.004, seed=0, queries=[docs[n][0] for n in docs]).generate()
+    harness = harness_run.JobHarness(
+        path, harness_run.TableSource(host_tables=tables))
+    monkeypatch.setattr(fused.FusedPlan, "_varchar_dev_csr",
+                        lambda self, *a: None)
+    calls = []
+    run = wave.execute_shared
+    monkeypatch.setattr(wave, "execute_shared",
+                        lambda *a: calls.append(1) or run(*a))
+    parsed, plan = harness.build_plan(job_shapes.VARCHAR_KEY_QUERY)
+    result = rt.execute(plan, harness.context)
+    assert calls == [1] and result.num_rows > 0
+    correct, detail = harness_run.verify_result(
+        parsed, plan, result, oracle.SqliteOracle(tables))
+    assert correct, detail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob,value", [
+    ("RJT_CSR_JOIN", "off"), ("RJT_DEV_CSR", "off"),
+    ("RJT_UNIQUE_JOIN", "sort"), ("RJT_BIG_MERGE", "4096"),
+    ("RJT_CARD_FEEDBACK", "off"), ("RJT_GENERAL_JOIN", "sort3"),
+])
+@pytest.mark.parametrize("mode", ["fused", "shared"])
+def test_knobs_on_card_keep_the_rows(job_plans, knob, value, mode,
+                                     monkeypatch):
+    plans, fused_results, ctx = job_plans
+    monkeypatch.setenv("RJT_EXEC_MODE", mode)
+    monkeypatch.setenv(knob, value)
+    for shape in ("s1", "s2", "f64"):
+        for _run in ("cold", "warm"):
+            _assert_same_rows(rt.execute(plans[shape], ctx),
+                              fused_results[shape])

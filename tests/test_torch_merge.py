@@ -223,8 +223,9 @@ _SMALL_MERGE_PAD = 256
 
 @pytest.fixture
 def force_merge(monkeypatch):
+    # both packages read the variable; the port's constant is its default
     monkeypatch.setenv("RJT_BIG_MERGE", str(_SMALL_MERGE_PAD))
-    monkeypatch.setattr(tfused, "BIG_MERGE_PAD", _SMALL_MERGE_PAD)
+    assert tfused.big_merge_pad() == _SMALL_MERGE_PAD != tfused.BIG_MERGE_PAD
 
 
 @pytest.mark.parametrize("case", [

@@ -65,39 +65,53 @@ def test_stepwise_fuzz_plan_matches_reference(seed, monkeypatch):
 def test_varchar_key_without_joint_window_falls_back(case, monkeypatch):
     """A VARCHAR key whose dictionaries have no joint window (here: the
     lowering is made to decline) is declined by the fused structure and
-    served, in ``auto`` mode, by the fallback executor of each package."""
+    served, in ``auto`` mode, by the wave executor of each package; the
+    stepwise executor is not reached."""
+    from radixjoin_tpu_torch.plan import executor as port_exec
+
     monkeypatch.delenv("RJT_EXEC_MODE", raising=False)
     monkeypatch.setattr(ref_fused.FusedPlan, "_varchar_dev_csr",
                         lambda self, *a: None)
     monkeypatch.setattr(port_fused.FusedPlan, "_varchar_dev_csr",
                         lambda self, *a: None)
-    stepwise_calls = []
+    shared_calls, stepwise_calls = [], []
+    run_shared = port_exec.execute_shared
     run_stepwise = port_engine.execute_device
+    monkeypatch.setattr(
+        port_exec, "execute_shared",
+        lambda *a: shared_calls.append(1) or run_shared(*a))
     monkeypatch.setattr(
         port_engine, "execute_device",
         lambda plan, ctx=None: stepwise_calls.append(1) or run_stepwise(
             plan, ctx))
+    before = port_exec.path_stats().get("general_merge[non_int]", 0)
     want, got, port_plan = run_both(SEMANTICS[case]())
     assert_same_result(want, got)
-    assert stepwise_calls == [1]
+    assert shared_calls == [1] and stepwise_calls == []
     assert port_plan._fused_struct_cache[1].has_varchar_key
+    assert port_exec.path_stats()["general_merge[non_int]"] == before + 1
     # the batch API takes the same fallback
     (again,) = port.execute_many([port_plan], port.build_context("cpu"))
     assert_same_result(want, again)
-    assert stepwise_calls == [1, 1]
+    assert shared_calls == [1, 1] and stepwise_calls == []
 
 
 def test_exec_mode_shared_is_not_ported_and_unknown_modes_raise(monkeypatch):
-    plan = convert.from_reference(SEMANTICS["simple_join"]())
+    """``shared`` runs (it was the last mode left to port) and equals the
+    reference under the same mode; an unknown mode still raises."""
+    ref_plan = SEMANTICS["simple_join"]()
     ctx = port.build_context("cpu")
     monkeypatch.setenv("RJT_EXEC_MODE", "shared")
-    with pytest.raises(NotImplementedError, match="shared"):
-        port.execute(plan, ctx)
-    with pytest.raises(NotImplementedError, match="shared"):
-        port.execute_many([plan], ctx)
+    want, got, plan = run_both(ref_plan)
+    assert_same_result(want, got)
+    assert getattr(plan, "_fused_struct_cache", None) is None
+    (again,) = port.execute_many([plan], ctx)
+    assert_same_result(want, again)
     monkeypatch.setenv("RJT_EXEC_MODE", "warp")
     with pytest.raises(ValueError, match="RJT_EXEC_MODE"):
         port.execute(plan, ctx)
+    with pytest.raises(ValueError, match="RJT_EXEC_MODE"):
+        port.execute_many([plan], ctx)
     monkeypatch.setenv("RJT_EXEC_MODE", "fused")
     assert port.execute(plan, ctx).num_rows == 3
 
