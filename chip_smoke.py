@@ -1,6 +1,7 @@
 """Smoke run of radixjoin_tpu_torch on one CUDA card (an NVIDIA H100).
 
     python3 chip_smoke.py [--scale 0.1] [--seed 0]
+    python3 chip_smoke.py --kernels OTHER/radixjoin_tpu_torch/ops/kernels.py
 
 Phases (any failure exits non-zero; the last line of standard output is
 ``{"ok": true, "device": {...}}`` only when every phase passed):
@@ -25,8 +26,15 @@ Phases (any failure exits non-zero; the last line of standard output is
    run with mixed element sizes in one call, unaligned table and index
    views, ragged lengths and tables past the shared-memory budget, and
    ``blocked_window_gather_multi`` also as the join calls it, without
-   its flags (``with_ok=False``). ``paged_window_gather`` also runs at a
-   deployment's size (the 18,878 pages of ``cast_info`` at scale 1.0).
+   its flags (``with_ok=False``). ``paged_window_gather`` runs at the
+   decode's page counts (131, 1,900 and 18,878: S1's ``title`` and
+   ``cast_info`` at scale 0.1, ``cast_info`` at 1.0), each case also with
+   its route and the device time ``torch.profiler`` records for the kernel
+   and for ``gather``, at 1,900 pages also with the L2 flushed before every
+   call; then on its scalar route (views one word off 16 bytes) and with
+   indices outside the page; then the whole ``decode_fixed_device`` of an
+   INT32 and an INT64 column at 1,900 and 18,878 pages, with the kernel's
+   share of its device time.
    The resident gathers also run with unaligned index and table views,
    with one tile, and with sequential positions on the L2 route (the
    index and output streams alone: what remains of the random-position
@@ -111,6 +119,15 @@ Before the last line it prints one JSON object with a record per kernel:
 (``launches`` counts phase 3 for the engine's three kernels and phase 4 for
 the others; ``launches_memory_batch`` counts phase 5 and
 ``launches_shared_sql`` phase 6).
+
+With ``--kernels``, only the page gather's decode cases of phase 2 run, to
+compare two builds of ``paged_window_gather`` on one card: this
+checkout's wrapper and that of another checkout's ``ops/kernels.py``
+(built from that checkout's sources, for example a parent commit
+unpacked with ``git archive``), each held equal to the plain version and
+timed in turns other, this, this, other, then ``gather``: event bracket,
+host ms to issue a call, profiler device ms, and device ms with the L2
+flushed before every call. It prints no result line.
 """
 
 from __future__ import annotations
@@ -118,7 +135,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -136,35 +152,32 @@ def _fail(msg: str) -> None:
 #: published device-memory rate of the H100 SXM (NVIDIA's data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 
+#: (pages, rows a page) of the device page decode's calls to
+#: paged_window_gather: S1's title at scale 0.1, cast_info at 0.1 (INT32
+#: and INT64) and cast_info at 1.0 (36,244,344 rows)
+PAGED_CASES = ((131, 1920), (1900, 1920), (1900, 960), (18878, 1920))
 
-def _timed(torch, fn, runs: int = 10, inner: int = 5,
-           warmup: int = 3) -> float:
-    """Median milliseconds per call over ``runs`` brackets of ``inner``
-    back-to-back warm calls between two CUDA events. Back to back, the
-    host's work for a call (allocating outputs, the launch) overlaps the
-    card's work for the call before, so a call that keeps the card busy
-    longer than the host is timed on the card alone. A call of more than
-    5 ms (the one-hot kernel's float64 plain version) is timed alone, over
-    half the runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    if time.perf_counter() - t0 > 5e-3:
-        runs, inner = runs // 2, 1
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+
+def _paged_label(npages: int, rows: int) -> str:
+    return f"{npages} pages " + ("INT32 R=1920" if rows == 1920
+                                 else "INT64 2x960 words")
+
+
+def _decode_inputs(torch, npages: int, rows: int, seed: int, dev):
+    """``(body, idx)`` of a decode's call over ``npages`` pages of ``rows``
+    rows, made on ``dev`` from ``seed``: random 2048-word bodies, 80% of
+    rows valid, rank the in-page exclusive count of valid rows; the word
+    1 + rank of an INT32 row (1920 a page), the words 2 + 2 rank and
+    3 + 2 rank of an INT64 row (960 a page)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    body = torch.randint(-(2 ** 31), 2 ** 31, (npages, 2048), generator=gen,
+                         device=dev, dtype=torch.int32)
+    bits = (torch.rand((npages, rows), generator=gen, device=dev)
+            < 0.8).to(torch.int32)
+    rank = torch.cumsum(bits, dim=1, dtype=torch.int32) - bits
+    idx = (1 + rank if rows == 1920 else
+           torch.cat([2 + 2 * rank, 3 + 2 * rank], dim=1))
+    return body, idx.contiguous()
 
 
 def _flat(x) -> list:
@@ -192,6 +205,11 @@ def _max_abs_err(torch, got, want) -> float:
 def check_kernels(torch, kernels, dev, seed: int):
     """Run every kernel case; returns {kernel name: record} with the
     representative case's times and the worst error over all cases."""
+    from radixjoin_tpu_torch.harness.kernel_timing import (bracket_ms,
+                                                           device_ms,
+                                                           enqueue_ms,
+                                                           l2_flusher)
+
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rand_table(n, dtype):
@@ -215,8 +233,8 @@ def check_kernels(torch, kernels, dev, seed: int):
         if len(got) != len(want) or err != 0.0:
             _fail(f"{name} [{label}] disagrees with its plain version "
                   f"(max abs err {err})")
-        ms = _timed(torch, fn_kernel)
-        plain_ms = _timed(torch, fn_plain)
+        ms = bracket_ms(fn_kernel)
+        plain_ms = bracket_ms(fn_plain)
         line = (f"kernel {name} [{label}]: bit-equal, kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms")
         library_ms = None
@@ -224,7 +242,7 @@ def check_kernels(torch, kernels, dev, seed: int):
             lib = _flat(fn_library())
             if not all(torch.equal(g, w) for g, w in zip(got, lib)):
                 _fail(f"{name} [{label}]: the library call disagrees")
-            library_ms = _timed(torch, fn_library)
+            library_ms = bracket_ms(fn_library)
             line += f", library {library_ms:.4f} ms"
         rec = records.setdefault(name, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -239,6 +257,23 @@ def check_kernels(torch, kernels, dev, seed: int):
                        pct_of_bound=100.0 * bound_ms / ms)
         _log(line)
         return ms
+
+    def paged_device_times(label, fn_kernel, fn_library=None, flush=None):
+        """The host time to issue a paged case's kernel call, and the device
+        time of the kernel and of gather from torch.profiler; with
+        ``flush``, also with the L2 flushed."""
+        parts = [f"host to issue a kernel call {enqueue_ms(fn_kernel):.4f} ms"]
+        for who, fn in (("kernel", fn_kernel), ("gather", fn_library)):
+            if fn is None:
+                continue
+            for tag, between in (("", None), (" L2 flushed", flush)):
+                if tag and between is None:
+                    continue
+                ms = device_ms(fn, between=between)
+                parts.append(f"{who}{tag} "
+                             + (f"{ms:.4f} ms" if ms else "not measured"))
+        _log(f"kernel paged_window_gather [{label}]: "
+             + ", ".join(parts) + " (device times from torch.profiler)")
 
     def esize(tables):
         return sum(t.element_size() for t in tables)
@@ -348,39 +383,57 @@ def check_kernels(torch, kernels, dev, seed: int):
     bwg_case(f"K=20 int64 N={1 << 20}", many,
              (mono[:1 << 20] // 2).contiguous())
 
-    # the decode's own index shapes: word db + rank for INT32 rows (1920 a
-    # page), words 2 + 2*rank and 3 + 2*rank for INT64 rows (960 a page),
-    # rank the in-page exclusive count of valid rows
-    npages = 1900
-    body = rand_table(npages * 2048, torch.int32).view(npages, 2048)
-    for label, rows in (("INT32 R=1920", 1920), ("INT64 2x960 words", 960)):
-        bits = (torch.rand((npages, rows), generator=gen, device=dev) < 0.8)
-        bits = bits.to(torch.int32)
-        rank = torch.cumsum(bits, dim=1, dtype=torch.int32) - bits
-        idx = (1 + rank if rows == 1920 else
-               torch.cat([2 + 2 * rank, 3 + 2 * rank], dim=1)).contiguous()
-        case("paged_window_gather", f"{npages} pages {label}",
-             lambda i=idx: kernels.paged_window_gather(body, i),
-             lambda i=idx: kernels.paged_window_gather_plain(body, i),
-             representative=(rows == 1920),
-             fn_library=lambda i=idx.long(): body.gather(1, i),
+    # the device page decode's calls (PAGED_CASES, _decode_inputs). Beside
+    # each case's event bracket, the host time to issue a call and the
+    # device time torch.profiler records for the kernel and for gather; at
+    # 1,900 INT32 pages also with the L2 flushed before every call (body,
+    # indices and output, 44.7 MB, fit the 50 MB L2)
+    flush = l2_flusher(dev)
+    for npages, rows in PAGED_CASES:
+        body, idx = _decode_inputs(torch, npages, rows, seed, dev)
+        i64 = idx.long()
+        rep = (npages, rows) == (1900, 1920)
+        label = _paged_label(npages, rows)
+        case("paged_window_gather", label,
+             lambda: kernels.paged_window_gather(body, idx),
+             lambda: kernels.paged_window_gather_plain(body, idx),
+             representative=rep, fn_library=lambda: body.gather(1, i64),
              nbytes=4 * (body.numel() + 2 * idx.numel()))
-
-    # a deployment's size: the INT32 columns of cast_info at scale 1.0
-    # (36,244,344 rows, 1920 a page)
-    npages = -(-36_244_344 // 1920)
-    body = rand_table(npages * 2048, torch.int32).view(npages, 2048)
-    bits = (torch.rand((npages, 1920), generator=gen, device=dev) < 0.8)
-    bits = bits.to(torch.int32)
-    idx = (1 + torch.cumsum(bits, dim=1, dtype=torch.int32) - bits).contiguous()
-    i64 = idx.long()
-    del bits
-    case("paged_window_gather", f"{npages} pages INT32 R=1920",
-         lambda: kernels.paged_window_gather(body, idx),
-         lambda: kernels.paged_window_gather_plain(body, idx),
-         fn_library=lambda: body.gather(1, i64),
-         nbytes=4 * (body.numel() + 2 * idx.numel()))
-    del body, idx, i64
+        if kernels.paged_window_gather.last_route != "vector":
+            _fail(f"paged_window_gather [{label}]: the decode's call took "
+                  f"the {kernels.paged_window_gather.last_route} route")
+        paged_device_times(label,
+                           lambda: kernels.paged_window_gather(body, idx),
+                           lambda: body.gather(1, i64),
+                           flush if rep else None)
+        del body, idx, i64
+    del flush
+    # the scalar route (body and index views one word past 16 bytes), then
+    # indices outside [0, w) (clamped) with Ro = 1924 on the vector route
+    body, idx = _decode_inputs(torch, 1900, 1920, seed + 1, dev)
+    pool = torch.empty(body.numel() + idx.numel() + 2, dtype=torch.int32,
+                       device=dev)
+    bview = pool[1:body.numel() + 1].view(body.shape)
+    iview = pool[body.numel() + 2:].view(idx.shape)
+    bview.copy_(body)
+    iview.copy_(idx)
+    wide = torch.randint(-5, 2048 + 5, (1900, 1924), generator=gen,
+                         device=dev, dtype=torch.int32)
+    for label, b, i, route in (
+            ("1900 pages INT32, views one word off", bview, iview, "scalar"),
+            ("1900 pages Ro=1924, indices in [-5, w + 5)", body, wide,
+             "vector")):
+        case("paged_window_gather", label,
+             lambda b=b, i=i: kernels.paged_window_gather(b, i),
+             lambda b=b, i=i: kernels.paged_window_gather_plain(b, i),
+             nbytes=4 * (b.numel() + 2 * i.numel()))
+        if kernels.paged_window_gather.last_route != route:
+            _fail(f"paged_window_gather [{label}]: route "
+                  f"{kernels.paged_window_gather.last_route}, not {route}")
+        paged_device_times(label,
+                           lambda b=b, i=i: kernels.paged_window_gather(b, i))
+    del body, idx, pool, bview, iview, wide
+    time_decode(torch, dev, seed)
 
     # the gather-experiment kernels at the tools' default shapes
     n = 1 << 24
@@ -519,6 +572,105 @@ def check_kernels(torch, kernels, dev, seed: int):
              fn_library=table_at(t, i) if body == "2level" else None,
              nbytes=4 * (2 * n + w))
     return records
+
+
+def compare_paged(torch, kernels, other_path: str, dev, seed: int) -> None:
+    """``--kernels``: this checkout's paged_window_gather beside another
+    checkout's (``other_path``, its ``ops/kernels.py``) and gather, at the
+    decode's calls, in turns other, this, this, other."""
+    import importlib.util
+
+    from radixjoin_tpu_torch.harness.kernel_timing import (bracket_ms,
+                                                           device_ms,
+                                                           enqueue_ms,
+                                                           l2_flusher)
+
+    spec = importlib.util.spec_from_file_location("other_kernels", other_path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.build()
+    _log(f"other kernels: {other.__file__}, built in "
+         f"{other.BUILD_INFO['seconds']:.1f} s")
+    flush = l2_flusher(dev)
+    for npages, rows in PAGED_CASES:
+        body, idx = _decode_inputs(torch, npages, rows, seed, dev)
+        i64 = idx.long()
+        want = kernels.paged_window_gather_plain(body, idx)
+        bound = 4 * (body.numel() + 2 * idx.numel()) / HBM_BYTES_PER_S * 1e3
+        fns = {"other": lambda: other.paged_window_gather(body, idx),
+               "this": lambda: kernels.paged_window_gather(body, idx),
+               "gather": lambda: body.gather(1, i64)}
+        for who in ("other", "this", "this", "other", "gather"):
+            fn = fns[who]
+            if not torch.equal(fn(), want):
+                _fail(f"paged_window_gather [{_paged_label(npages, rows)}]: "
+                      f"{who} differs from the plain version")
+            dev_ms = device_ms(fn)
+            flushed = device_ms(fn, between=flush)
+            _log(f"paged [{_paged_label(npages, rows)}] {who}: bracket "
+                 f"{bracket_ms(fn):.4f} ms, host to issue a call "
+                 f"{enqueue_ms(fn):.4f} ms, device "
+                 + (f"{dev_ms:.4f} ms" if dev_ms else "not measured")
+                 + ", device with L2 flushed "
+                 + (f"{flushed:.4f} ms" if flushed else "not measured")
+                 + f"; bound {bound:.4f} ms")
+        del body, idx, i64, want
+
+
+def time_decode(torch, dev, seed: int) -> None:
+    """The whole device page decode (``decode_fixed_device``: the upload of
+    the host's pages, bitmap unpack, rank, ``paged_window_gather``, the
+    masking and for INT64 the reassembly) of an INT32 and an INT64 column
+    of random page bytes at 1,900 and 18,878 full pages: wall ms and the
+    device ms of each part, so that the kernel's share shows. Held equal to
+    the same call on the CPU at 1,900 pages."""
+    import numpy as np
+
+    from radixjoin_tpu_torch.dtypes import DataType
+    from radixjoin_tpu_torch.harness.kernel_timing import device_times
+    from radixjoin_tpu_torch.storage import device_decode as dd
+
+    rng = np.random.default_rng(seed)
+    for dtype in (DataType.INT32, DataType.INT64):
+        for npages in (1900, 18878):
+            pages = rng.integers(0, 256, (npages, 8192), dtype=np.uint8)
+            n = npages * dd.ALIGNED_ROWS[dtype]
+
+            def decode():
+                return dd.decode_fixed_device(pages, n, dtype, dev)
+
+            if npages == 1900:
+                got = decode()
+                want = dd.decode_fixed_device(pages, n, dtype, "cpu")
+                if not all(torch.equal(g.cpu(), w)
+                           for g, w in zip(got, want)):
+                    _fail(f"decode_fixed_device {dtype.name} {npages} "
+                          f"pages differs from the cpu decode")
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                decode()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall = sorted(walls)[2]
+            times = device_times(decode, calls=3)
+            if not times:
+                _log(f"decode {dtype.name} {npages} pages: wall {wall:.3f} "
+                     f"ms; device time not measured")
+                continue
+            total = sum(times.values())
+            kernel = sum(v for k, v in times.items()
+                         if "paged_gather_kernel" in k)
+            copy = sum(v for k, v in times.items() if "memcpy" in k.lower())
+            _log(f"decode {dtype.name} {npages} pages ({n} rows, "
+                 f"{pages.nbytes / 1e6:.1f} MB of pages): wall {wall:.3f} ms "
+                 f"(median of 5); device {total:.4f} ms, of it the upload "
+                 f"{copy:.4f} ms, the other torch kernels "
+                 f"{total - copy - kernel:.4f} ms and paged_window_gather "
+                 f"{kernel:.4f} ms ({100.0 * kernel / total:.1f}% of the "
+                 f"device time, {100.0 * kernel / wall:.2f}% of the wall)")
+            del pages
 
 
 # ---------------------------------------------------------------------------
@@ -1331,6 +1483,9 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--devtime-size", type=int, default=1 << 22)
+    ap.add_argument("--kernels", default=None,
+                    help="another checkout's ops/kernels.py: compare its "
+                         "paged_window_gather with this one's, and stop")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1366,8 +1521,12 @@ def main() -> None:
              f"{clock[-1] - t_start:.1f} s since the start")
 
     phase_done("phase 1 (environment and build)")
-    # phase 2: kernels against their plain versions
     dev = torch.device("cuda")
+    if args.kernels:
+        compare_paged(torch, kernels, args.kernels, dev, args.seed)
+        phase_done("paged_window_gather against the other checkout's")
+        return
+    # phase 2: kernels against their plain versions
     records = check_kernels(torch, kernels, dev, args.seed)
     phase_done("phase 2 (kernel checks)")
     # phase 3: the main path, counted

@@ -1,6 +1,6 @@
 // Shared declarations of the port's gather kernels (window_gather.cu,
 // blocked_window_gather.cu, resident_gather.cu; paged_window_gather.cu takes
-// the shared-memory opt-in from here).
+// the shared-memory opt-in and the bulk-copy helpers from here).
 //
 // Tables travel to a kernel as a by-value struct of up to RJT_MAX_TABLES
 // descriptors (source, destination, length, element size), so one launch
@@ -73,8 +73,11 @@ __device__ __forceinline__ bool rjt_aligned16(const void* p) {
 // Staging a table in shared memory with one bulk asynchronous copy
 // (cp.async.bulk): one thread initialises an mbarrier (followed by a block
 // barrier), announces the bytes that will arrive, issues the copies, and
-// every thread waits for phase 0 of the barrier. Source and destination
-// must be 16-byte aligned and the size a multiple of 16 bytes.
+// every thread waits for the barrier's phase. Source and destination must
+// be 16-byte aligned and the size a multiple of 16 bytes. A barrier used
+// again completes its phases with parity 0, 1, 0, ...; a buffer that
+// threads have read may be refilled by a bulk copy only after a block
+// barrier and rjt_fence_proxy_async().
 __device__ __forceinline__ uint32_t rjt_smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -104,19 +107,27 @@ __device__ __forceinline__ void rjt_bulk_copy(void* smem_dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ void rjt_mbar_wait(uint32_t bar_addr) {
+// Waits until the barrier's phase of the given parity (0 or 1) completed.
+__device__ __forceinline__ void rjt_mbar_wait(uint32_t bar_addr,
+                                              uint32_t parity) {
   uint32_t arrived = 0;
   while (!arrived) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n"
         "}\n"
         : "=r"(arrived)
-        : "r"(bar_addr)
+        : "r"(bar_addr), "r"(parity)
         : "memory");
   }
+}
+
+// Orders this thread's earlier generic-proxy accesses to shared memory
+// before its later async-proxy ones (a bulk copy into a buffer just read).
+__device__ __forceinline__ void rjt_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Row r (0 .. RJT_ROWS - 1) of this thread in the warp span from warp_row0.

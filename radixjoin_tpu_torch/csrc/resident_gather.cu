@@ -115,7 +115,7 @@ resident_gather_kernel(const int32_t* __restrict__ table, int w, int limit,
         rjt_mbar_expect(bar_addr, (uint32_t)w * 4u);
         rjt_bulk_copy(s_tab, table, (uint32_t)w * 4u, bar_addr);
       }
-      rjt_mbar_wait(bar_addr);
+      rjt_mbar_wait(bar_addr, 0);
     } else {
       for (int i = threadIdx.x; i < w; i += blockDim.x) {
         const int32_t t = table[i];

@@ -96,7 +96,7 @@ window_gather_kernel(RjtTables tabs, int k, int w,
       }
     }
   }
-  rjt_mbar_wait(bar_addr);
+  rjt_mbar_wait(bar_addr, 0);
   __syncthreads();
 
   const bool idx_vec = (reinterpret_cast<uintptr_t>(idx) & 7) == 0;

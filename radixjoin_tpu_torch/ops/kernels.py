@@ -81,7 +81,7 @@ _SIGNATURES = {
     "rjt_blocked_window_gather": [_I32, _I32, _VP, _VP, _VP, _VP, _VP, _I64,
                                   _I64, _VP, _I32, _VP],
     "rjt_paged_window_gather": [_I32, _VP, _VP, _VP, _I64, _I32, _I32,
-                                _I32, _VP],
+                                _I32, _I32, _VP],
     "rjt_resident_gather": [_I32, _I32, _I32, _VP, _I64, _VP, _VP, _I64,
                             _I32, _I32, _VP],
 }
@@ -255,7 +255,11 @@ def _device_limits(device: torch.device) -> Tuple[int, int]:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device``. (The public
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    first, which costs each launch several microseconds of host time: as
+    much as a small decode's kernel takes on the card.)"""
+    return torch._C._cuda_getCurrentRawStream(_index(device))
 
 
 def _index(device: torch.device) -> int:
@@ -424,33 +428,48 @@ def paged_window_gather(body: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[p, r] = body[p, idx[p, r]]``: the per-page gather of the device
     page decode. ``body`` is (npages, w) int32 with w <= 12288 (one page in
     shared memory; a page is 2048 words), ``idx`` (npages, Ro) int32 in
-    ``[0, w)``."""
+    ``[0, w)`` (the kernel and the plain version clamp to it).
+
+    On the card the kernel takes its vector route (bodies by bulk copy,
+    16-byte index loads and stores) where ``body`` and ``idx`` start on 16
+    bytes and w and Ro are multiples of 4, as every decode call does, and
+    its scalar route otherwise; ``paged_window_gather.last_route`` says
+    which (``"vector"`` or ``"scalar"``)."""
     name = "paged_window_gather"
     _check_index(idx, 2, name)
     if body.dtype != torch.int32 or body.dim() != 2 or not body.is_contiguous():
         raise TypeError(f"{name}: body must be a contiguous 2-D int32 tensor")
-    if body.device != idx.device or body.shape[0] != idx.shape[0]:
+    device = idx.device
+    if body.device != device or body.shape[0] != idx.shape[0]:
         raise ValueError(f"{name}: body and index disagree in device or pages")
-    npages, w = body.shape
-    if not 0 < w <= 12288:
-        raise ValueError(f"{name}: page width {w} out of range")
-    if idx.device.type == "cpu":
+    if not 0 < body.shape[1] <= 12288:
+        raise ValueError(f"{name}: page width {body.shape[1]} out of range")
+    if device.type == "cpu":
         return paged_window_gather_plain(body, idx)
-    _cuda_or_raise(idx.device, name)
+    _cuda_or_raise(device, name)
     lib = build()
+    npages, w = body.shape
     ro = idx.shape[1]
-    out = torch.empty((npages, ro), dtype=torch.int32, device=idx.device)
+    out = torch.empty((npages, ro), dtype=torch.int32, device=device)
     if npages == 0 or ro == 0:
         return out
-    dev = _index(idx.device)
+    vec = _paged_vector_route(body, idx)
+    paged_window_gather.last_route = "vector" if vec else "scalar"
     rc = lib.rjt_paged_window_gather(
-        dev, body.data_ptr(), idx.data_ptr(), out.data_ptr(), npages, w, ro,
-        256, _stream(idx.device),
+        _index(device), body.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        npages, w, ro, int(vec), _device_limits(device)[0], _stream(device),
     )
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     paged_window_gather.launches += 1
     return out
+
+
+def _paged_vector_route(body: torch.Tensor, idx: torch.Tensor) -> bool:
+    """Whether ``csrc/paged_window_gather.cu`` may take its vector route
+    for these inputs (its output, a fresh allocation, starts on 16 bytes)."""
+    return (body.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
+            and body.shape[1] % 4 == 0 and idx.shape[1] % 4 == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -656,5 +675,6 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 _WRAPPERS = (window_gather, blocked_window_gather_multi, paged_window_gather,
              pallas_gather, gather_pallas_vmem, mk_gather, onehot_gather)
 reset_launch_counts()
-for _fn in (pallas_gather, gather_pallas_vmem, mk_gather):
+for _fn in (paged_window_gather, pallas_gather, gather_pallas_vmem,
+            mk_gather):
     _fn.last_route = None

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 import radixjoin_tpu_torch as rt
+from radixjoin_tpu_torch.dtypes import DataType
 from radixjoin_tpu_torch.harness import job_shapes
 from radixjoin_tpu_torch.harness.datagen import SyntheticIMDB
 from radixjoin_tpu_torch.ops import kernels
 from radixjoin_tpu_torch.plan import fused
+from radixjoin_tpu_torch.storage import device_decode as dd
 
 
 @pytest.fixture
@@ -71,6 +73,142 @@ def _rand(gen, dev, n, dtype):
     top = 1 << (31 if dtype == torch.int32 else 62)
     return torch.randint(-top, top, (n,), generator=gen, device=dev,
                          dtype=dtype)
+
+
+def _pages(cuda_device, npages):
+    """A page count, or "2 x grid + 1": more than twice the blocks the
+    kernel's 256-thread blocks can hold at once (8 an SM at most), so that
+    every block's ring of page slots turns over more than once."""
+    if npages != "2 x grid + 1":
+        return npages
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    return 2 * 8 * sms + 1
+
+
+def _paged_inputs(dev, npages, w, ro, lo=0, hi=None):
+    gen = torch.Generator(device=dev).manual_seed(npages * 7 + ro + w)
+    body = _rand(gen, dev, npages * w, torch.int32).view(npages, w)
+    idx = torch.randint(lo, w if hi is None else hi, (npages, ro),
+                        generator=gen, device=dev, dtype=torch.int32)
+    return body, idx
+
+
+def _one_word_off(t):
+    """A copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    pool = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = pool[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2048, 12288])
+@pytest.mark.parametrize("ro", [128, 1920, 3840, 1924])
+@pytest.mark.parametrize("npages", [1, 131, 1900, "2 x grid + 1"])
+def test_cuda_paged_window_gather_matches_plain(cuda_device, npages, ro, w):
+    npages = _pages(cuda_device, npages)
+    body, idx = _paged_inputs(cuda_device, npages, w, ro)
+    kernels.reset_launch_counts()
+    got = kernels.paged_window_gather(body, idx)
+    torch.cuda.synchronize()
+    assert kernels.paged_window_gather.last_route == "vector"
+    assert kernels.launch_counts()["paged_window_gather"] == 1
+    assert torch.equal(got, kernels.paged_window_gather_plain(body, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npages", [1, 131, "2 x grid + 1"])
+def test_cuda_paged_window_gather_both_routes(cuda_device, npages):
+    npages = _pages(cuda_device, npages)
+    body, idx = _paged_inputs(cuda_device, npages, 2048, 1920)
+    want = kernels.paged_window_gather_plain(body, idx)
+    off_body, off_idx = _one_word_off(body), _one_word_off(idx)
+    for b, i, route in ((body, idx, "vector"), (off_body, idx, "scalar"),
+                        (body, off_idx, "scalar"),
+                        (off_body, off_idx, "scalar")):
+        got = kernels.paged_window_gather(b, i)
+        torch.cuda.synchronize()
+        assert kernels.paged_window_gather.last_route == route
+        assert torch.equal(got, want)
+    # a width and a row count that are no multiples of 4
+    b, i = body[:, :2046].contiguous(), idx[:, :1922].clamp(max=2045)
+    got = kernels.paged_window_gather(b, i.contiguous())
+    torch.cuda.synchronize()
+    assert kernels.paged_window_gather.last_route == "scalar"
+    assert torch.equal(got, kernels.paged_window_gather_plain(b, i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_paged_window_gather_clamps_indices(cuda_device, aligned):
+    w = 2048
+    body, idx = _paged_inputs(cuda_device, 300, w, 1920, lo=-5, hi=w + 5)
+    idx[0, :4] = torch.tensor([-(2 ** 31), 2 ** 31 - 1, -1, w],
+                              dtype=torch.int32, device=cuda_device)
+    if not aligned:
+        body, idx = _one_word_off(body), _one_word_off(idx)
+    got = kernels.paged_window_gather(body, idx)
+    torch.cuda.synchronize()
+    assert kernels.paged_window_gather.last_route == (
+        "vector" if aligned else "scalar")
+    assert torch.equal(got, kernels.paged_window_gather_plain(body, idx))
+    assert torch.equal(got[0, :4], torch.stack(
+        [body[0, 0], body[0, w - 1], body[0, 0], body[0, w - 1]]))
+
+
+@pytest.mark.cuda
+def test_cuda_paged_window_gather_widths_across_threads(cuda_device):
+    # the shared-memory opt-in is a setting of the whole process: a narrow
+    # page launched from another thread must not lower it under a wide one
+    import threading
+
+    inputs = {w: _paged_inputs(cuda_device, 400, w, 1920)
+              for w in (12288, 8192, 2048)}
+    errors = []
+
+    def run(widths):
+        try:
+            for w in widths:
+                body, idx = inputs[w]
+                got = kernels.paged_window_gather(body, idx)
+                torch.cuda.synchronize()
+                assert torch.equal(
+                    got, kernels.paged_window_gather_plain(body, idx))
+        except Exception as exc:  # handed to the test's thread
+            errors.append(exc)
+
+    for widths in ((12288,), (8192, 2048), (12288, 8192, 12288)):
+        t = threading.Thread(target=run, args=(widths,))
+        t.start()
+        t.join()
+    assert not errors, errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [DataType.INT32, DataType.INT64,
+                                   DataType.FP64])
+def test_cuda_device_decode_matches_cpu(cuda_device, dtype):
+    rng = np.random.default_rng(int(dtype))
+    r = dd.ALIGNED_ROWS[dtype]
+    n = 300 * r + 77  # full pages and a remainder page
+    if dtype is DataType.FP64:
+        vals = rng.normal(size=n) * 1e6
+        vals[:3] = [-0.0, np.nan, np.inf]
+    else:
+        npdt = np.int32 if dtype is DataType.INT32 else np.int64
+        info = np.iinfo(npdt)
+        vals = rng.integers(info.min, info.max, n, endpoint=True).astype(npdt)
+    valid = rng.random(n) >= 0.25
+    valid[:r], valid[r:2 * r] = False, True  # an all-NULL, an all-valid page
+    pages = dd.encode_fixed_aligned(vals, valid, dtype)
+    kernels.reset_launch_counts()
+    data, dvalid = dd.decode_fixed_device(pages, n, dtype, cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_window_gather"] == 1
+    want, want_valid = dd.decode_fixed_device(pages, n, dtype, "cpu")
+    assert data.dtype == want.dtype
+    assert torch.equal(data.cpu(), want)
+    assert torch.equal(dvalid.cpu(), want_valid)
 
 
 def _assert_equal_lists(got, want):

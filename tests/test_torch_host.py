@@ -88,17 +88,24 @@ def test_column_statistics_match(seed):
 @pytest.mark.parametrize("dtype,npdt", FIXED)
 def test_device_decode_matches_reference(dtype, npdt):
     rng = np.random.default_rng(7)
-    n = 2 * dd.ALIGNED_ROWS[dtype] + 123  # two full pages + remainder
-    vals, valid = _column(rng, npdt, n)
-    pages = dd.encode_fixed_aligned(vals, valid, dtype)
-    assert dd.aligned_full_pages(pages, n, dtype) == 2
-    data, dvalid = dd.decode_fixed_device(pages, n, dtype, "cpu")
-    ref_data, ref_valid = ref_dd.decode_fixed_device(
-        pages, n, RefDataType(int(dtype)))
-    np.testing.assert_array_equal(dvalid.numpy(), np.asarray(ref_valid))
-    np.testing.assert_array_equal(data.numpy(), np.asarray(ref_data))
-    assert data.dtype == (torch.int32 if dtype is DataType.INT32
-                          else torch.int64)
+    r = dd.ALIGNED_ROWS[dtype]
+    # two full pages + remainder; then exactly three full pages (no
+    # remainder): one all NULL, one all valid, one mixed
+    mixed = _column(rng, npdt, 2 * r + 123)
+    vals, valid = _column(rng, npdt, 3 * r)
+    valid[:r], valid[r:2 * r] = False, True
+    for (vals, valid), full in ((mixed, 2), ((vals, valid), 3)):
+        n = len(vals)
+        pages = dd.encode_fixed_aligned(vals, valid, dtype)
+        assert dd.aligned_full_pages(pages, n, dtype) == full
+        data, dvalid = dd.decode_fixed_device(pages, n, dtype, "cpu")
+        ref_data, ref_valid = ref_dd.decode_fixed_device(
+            pages, n, RefDataType(int(dtype)))
+        np.testing.assert_array_equal(dvalid.numpy(), np.asarray(ref_valid))
+        np.testing.assert_array_equal(data.numpy(), np.asarray(ref_data))
+        assert data.dtype == (torch.int32 if dtype is DataType.INT32
+                              else torch.int64)
+        assert data.shape == (n,)
 
 
 def _port_sources():

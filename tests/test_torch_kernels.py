@@ -233,16 +233,45 @@ def test_resident_maps_and_entry_points():
         assert all(mode in kernels._MAPS for mode, _two_d in bodies.values())
 
 
-@pytest.mark.parametrize("ro", [1920, 3840])
-def test_paged_window_gather_plain_matches_pallas(ro):
-    rng = np.random.default_rng(ro)
-    npages = 3
-    body = _rand_i32(rng, npages * 2048).reshape(npages, 2048)
-    idx = rng.integers(0, 2048, (npages, ro)).astype(np.int32)
+def _paged_shapes():
+    """(w, ro, npages) over the shapes the Pallas kernel takes; the decode's
+    own two (w = 2048, three pages) keep their earlier ids."""
+    for w in (128, 2048, 4096):
+        for ro in (128, 1920, 3840):
+            for npages in (1, 3):
+                own = w == 2048 and npages == 3 and ro != 128
+                yield pytest.param(w, ro, npages,
+                                   id=str(ro) if own else f"{w}-{ro}-{npages}")
+
+
+@pytest.mark.parametrize("w,ro,npages", list(_paged_shapes()))
+def test_paged_window_gather_plain_matches_pallas(w, ro, npages):
+    rng = np.random.default_rng([w, ro, npages])
+    body = _rand_i32(rng, npages * w).reshape(npages, w)
+    idx = rng.integers(0, w, (npages, ro)).astype(np.int32)
     want = pk.paged_window_gather(jnp.asarray(body), jnp.asarray(idx))
     got = kernels.paged_window_gather(torch.from_numpy(body),
                                       torch.from_numpy(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_paged_vector_route_needs_aligned_rows():
+    # the rule the wrapper applies before a launch: body and index start on
+    # 16 bytes, w and Ro multiples of 4 (the output is a fresh allocation)
+    pool = torch.zeros(4 * 2048 + 16, dtype=torch.int32)
+    base = pool.data_ptr() % 16 // 4  # words to the first 16-byte boundary
+    body = pool[base:base + 2 * 2048].view(2, 2048)
+    idx = pool[base + 4096:base + 4096 + 2 * 1924].view(2, 1924)
+    assert kernels._paged_vector_route(body, idx)
+    off = pool[base + 1:base + 1 + 2 * 2048].view(2, 2048)
+    assert not kernels._paged_vector_route(off, idx)
+    assert not kernels._paged_vector_route(
+        body, pool[base + 4097:base + 4097 + 2 * 1924].view(2, 1924))
+    assert not kernels._paged_vector_route(
+        pool[base:base + 2 * 2046].view(2, 2046), idx)
+    assert not kernels._paged_vector_route(
+        body, pool[base + 4096:base + 4096 + 2 * 1922].view(2, 1922))
+    assert kernels.paged_window_gather.last_route is None  # CPU: no launch
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
