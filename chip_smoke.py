@@ -112,13 +112,38 @@ Phases (any failure exits non-zero; the last line of standard output is
       2^21 and 2^30, ``RJT_CARD_FEEDBACK=off``): rows equal, the
       strategies the structure took, warm ms.
 
+7. The distributed layer (``radixjoin_tpu_torch/parallel``), with the
+   counters set to 0 just before and read just after:
+   a. a one-rank NCCL group (``multihost.init`` over a free localhost
+      port): S1, S2, S3 and F1 through ``execute_distributed`` over phase
+      3's tables, cold, then warm on a fresh plan object of the same
+      content: rows equal to phase 3's fused results; per plan the ms
+      beside phase 3's fused warm ms, the joins replayed warm, the host
+      syncs torch's sync debug mode saw (warm: the root's check and gather
+      only), the collective calls and the bytes they moved, and the kernel
+      launches; S2 again with ``exchange_chunks=3`` and with
+      ``bloom_max_bits=0``; the scenarios of
+      ``tools/multihost_worker.py`` against the row oracle;
+   b. ``distributed_join`` at 2^22 build and 2^24 probe rows (int64 keys,
+      one key on 60% of the probe side), monolithic and with
+      ``exchange_chunks=3``: every matched probe row once (numpy), 2^16
+      sampled output rows equal to numpy, ``info``, the ms of the whole
+      call and of the join on shards already uploaded, peak device memory;
+      then the group is left;
+   c. two rank processes of ``tools/multihost_worker.py`` on ``cuda:0``
+      over gloo: every scenario cold and warm equal on both ranks, row for
+      row, and to 7a's one rank as row multisets;
+   d. ``q1a`` and ``q_varchar`` through ``JobHarness.run_query`` with
+      ``distributed`` on (the harness opens and leaves its own one-rank
+      NCCL group), over phase 6's data, against sqlite and the row oracle.
+
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-"pct_of_bound", "launches_memory_batch", "launches_shared_sql"}, ...]}``
-(``launches`` counts phase 3 for the engine's three kernels and phase 4 for
-the others; ``launches_memory_batch`` counts phase 5 and
-``launches_shared_sql`` phase 6).
+"pct_of_bound", "launches_memory_batch", "launches_shared_sql",
+"launches_dist"}, ...]}`` (``launches`` counts phase 3 for the engine's
+three kernels and phase 4 for the others; ``launches_memory_batch`` counts
+phase 5, ``launches_shared_sql`` phase 6 and ``launches_dist`` phase 7).
 
 With ``--kernels``, only the page gather's decode cases of phase 2 run, to
 compare two builds of ``paged_window_gather`` on one card: this
@@ -1136,7 +1161,8 @@ def _delta(after: dict, before: dict) -> dict:
 
 
 def run_shared_and_sql(torch, np, rt, kernels, main, args):
-    """Phase 6 (see the module docstring). Returns its launch counts."""
+    """Phase 6 (see the module docstring). Returns its launch counts and
+    the query documents' data and sqlite results for phase 7d."""
     import tempfile
     import warnings
 
@@ -1374,8 +1400,10 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     on_card.close()
     on_cpu.close()
     small_harness.close()
-    tmp.cleanup()
-    del imdb, small, sqlite, small_sqlite, source
+    del small, small_sqlite
+    # phase 7d runs two of the documents again over the same data
+    sql_state = {"tmp": tmp, "plans_path": plans_path, "source": source,
+                 "sql_rows": sql_rows, "expected": expected}
 
     # 6d: each knob against its default, inside whole plans
     knobs = [("default", {}),
@@ -1424,7 +1452,365 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS):
         _fail(f"a kernel of the wave executor and SQL path was not "
               f"launched: {launches}")
+    return launches, sql_state
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the distributed layer
+# ---------------------------------------------------------------------------
+
+
+class _HostResult:
+    """A HostTable where ``_same_rows`` reads ``to_host()``."""
+
+    def __init__(self, host):
+        self.host = host
+        self.num_rows = host.num_rows
+
+    def to_host(self):
+        return self.host
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_run(torch, dx, plan, mesh, config):
+    """One ``execute_distributed``: ``(result, wall ms, host syncs seen by
+    torch's sync debug mode, collective-stats delta)``."""
+    import warnings
+
+    from radixjoin_tpu_torch.parallel import multihost
+
+    torch.cuda.synchronize()
+    before = multihost.collective_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            host = dx.execute_distributed(plan, mesh=mesh, config=config)
+            ms = (time.perf_counter() - t0) * 1e3  # ends in a host fetch
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = multihost.collective_stats()
+    n_sync = sum("synchroniz" in str(w.message) for w in seen)
+    return host, ms, n_sync, {k: after[k] - before[k] for k in after}
+
+
+def _profile_device(torch, label: str, fn) -> None:
+    """Run ``fn()`` once under torch.profiler and log its wall ms, the
+    device's busy ms (device-side kernel and copy time summed), the idle
+    share and the eight largest device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        _log(f"{label} profile: device time not measured (the profiler "
+             f"reported none)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    _log(f"{label} profile: {wall_ms:.1f} ms wall under the profiler, "
+         f"device busy {busy_ms:.3f} ms, idle share "
+         f"{1 - busy_ms / wall_ms:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        _log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+             f"{e.key[:90]}")
+
+
+def _same_columns(np, a, b, ordered: bool = True) -> bool:
+    """Equal ``table_columns`` lists (floats by bit pattern): row for row,
+    or as row multisets when not ``ordered``."""
+    if len(a) != len(b):
+        return False
+    keys_a, keys_b = [], []
+    for (va, xa), (vb, xb) in zip(a, b):
+        if len(xa) != len(xb):
+            return False
+        if xa.dtype == np.float64:
+            xa, xb = xa.view(np.int64), xb.view(np.int64)
+        if xa.dtype == object:
+            _, inv = np.unique(np.concatenate([xa, xb]), return_inverse=True)
+            xa, xb = inv[:len(xa)], inv[len(xa):]
+        keys_a += [va, xa]
+        keys_b += [vb, xb]
+    if not ordered and keys_a:
+        oa, ob = np.lexsort(keys_a[::-1]), np.lexsort(keys_b[::-1])
+        keys_a = [k[oa] for k in keys_a]
+        keys_b = [k[ob] for k in keys_b]
+    return all(np.array_equal(x, y) for x, y in zip(keys_a, keys_b))
+
+
+def run_distributed(torch, np, rt, kernels, main, sql, args):
+    """Phase 7 (see the module docstring). Returns its launch counts."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+
+    from radixjoin_tpu_torch.dtypes import DataType
+    from radixjoin_tpu_torch.harness import oracle
+    from radixjoin_tpu_torch.harness import run as harness_run
+    from radixjoin_tpu_torch.parallel import (DistJoinConfig, make_mesh,
+                                              multihost)
+    from radixjoin_tpu_torch.parallel import dist_executor as dx
+    from radixjoin_tpu_torch.parallel import dist_join
+    from radixjoin_tpu_torch.plan.ir import Plan
+    from radixjoin_tpu_torch.storage.columnar import ColumnarTable, HostTable
+    from radixjoin_tpu_torch.tools import multihost_worker as worker
+
+    tables, warm = main["tables"], main["warm"]
+    mib = float(1 << 20)
+    kernels.reset_launch_counts()
+
+    # 7a: a one-rank NCCL group; the plans of phase 3 cold, then warm
+    multihost.init(f"localhost:{_free_port()}", 1, 0)
+    mesh = make_mesh()
+    if mesh.backend != "nccl" or mesh.device.type != "cuda":
+        _fail(f"7a: the mesh is {mesh.backend} on {mesh.device}")
+    _log(f"7a: one-rank {mesh.backend} group, rank {mesh.rank} of "
+         f"{mesh.size}, on {mesh.device}")
+    builds = {n: (b, z) for n, b, z in main["shapes"]}
+    for name, build, lazy in main["shapes"]:
+        before = kernels.launch_counts()
+        line = []
+        for run in ("cold", "warm"):
+            plan = build(tables, lazy=lazy)  # warm: a fresh plan object
+            host, ms, syncs, coll = _dist_run(torch, dx, plan, mesh, None)
+            stats = plan._last_dist_stats
+            if not _same_rows(np, _HostResult(host), warm[name]):
+                _fail(f"7a {name} {run}: rows differ from phase 3's fused "
+                      f"result")
+            if run == "warm" and (stats["replayed"] != stats["joins"]
+                                  or stats["rerun"] or syncs > 2):
+                _fail(f"7a {name} warm: {stats}, {syncs} host syncs (the "
+                      f"root's check and gather expected)")
+            line.append(
+                f"{run} {ms:.1f} ms ({stats['replayed']} of "
+                f"{stats['joins']} joins replayed, {syncs} host syncs seen "
+                f"by the sync debug mode, {coll['host_syncs']} fetches, "
+                f"{coll['calls']} collective calls moving "
+                f"{coll['bytes'] / mib:.1f} MiB)")
+        rose = _delta(kernels.launch_counts(), before)
+        _profile_device(torch, f"7a {name} warm",
+                        lambda: dx.execute_distributed(
+                            build(tables, lazy=lazy), mesh=mesh))
+        _log(f"7a {name}: " + ", ".join(line) + f"; fused warm "
+             f"{main['warm_ms'][name]:.1f} ms (phase 3); {host.num_rows} "
+             f"rows equal to phase 3's; kernel launches {json.dumps(rose)}")
+    build, lazy = builds["S2"]
+    for label, config in (("exchange_chunks=3",
+                           DistJoinConfig(exchange_chunks=3)),
+                          ("bloom_max_bits=0",
+                           DistJoinConfig(bloom_max_bits=0))):
+        line = []
+        for run in ("cold", "warm"):
+            plan = build(tables, lazy=lazy)
+            host, ms, syncs, coll = _dist_run(torch, dx, plan, mesh, config)
+            if not _same_rows(np, _HostResult(host), warm["S2"]):
+                _fail(f"7a S2 {label} {run}: rows differ from phase 3")
+            line.append(f"{run} {ms:.1f} ms ({syncs} host syncs, "
+                        f"{coll['calls']} collective calls, "
+                        f"{coll['bytes'] / mib:.1f} MiB)")
+        _log(f"7a S2 with {label}: " + ", ".join(line) + ", rows equal")
+    # the worker's scenarios at one rank: what 7c's two ranks must give
+    ns = (DataType, Plan, ColumnarTable, HostTable)
+    one_rank = {}
+    for scenario in worker.SCENARIOS:
+        for chunks in (0, 3):
+            plan = worker.build_scenario(scenario, *ns)
+            expected = oracle.execute_plan_rows(plan)
+            config = DistJoinConfig(exchange_chunks=max(1, chunks))
+            for run in ("cold", "warm"):
+                host = dx.execute_distributed(plan, mesh=mesh, config=config)
+                ok, detail = oracle.rows_equal(host.to_rows(), expected)
+                if not ok:
+                    _fail(f"7a scenario {scenario} chunks={chunks} {run}: "
+                          f"{detail}")
+            one_rank[f"{scenario}/{chunks}"] = worker.table_columns(host)
+    _log(f"7a: the scenarios {list(one_rank)} cold and warm equal the row "
+         f"oracle")
+
+    # 7b: the join layer at size
+    rng = np.random.default_rng(args.seed)
+    nb, npr = DIST_JOIN_ROWS
+    bk = rng.permutation(nb).astype(np.int64)  # every key once, 0 .. nb-1
+    bx = rng.integers(0, 1 << 30, nb).astype(np.int32)
+    pk = rng.integers(0, 2 * nb, npr).astype(np.int64)
+    hot = rng.random(npr) < 0.6
+    pk[hot] = int(bk[0])
+    bv, pv = np.ones(nb, bool), np.ones(npr, bool)
+    py = np.arange(npr, dtype=np.int64)
+    matched = pk < nb
+    want_rows = np.flatnonzero(matched)
+    row_of_key = np.empty(nb, np.int64)
+    row_of_key[bk] = np.arange(nb)
+    in_bytes = nb * (8 + 1 + 4) + npr * (8 + 1 + 8)
+    out_bytes = len(want_rows) * (8 + 4 + 8 + 1)
+    _log(f"7b: {nb} build rows (int64 key, int32 payload), {npr} probe rows "
+         f"(int64 key, int64 row id), key {int(bk[0])} on "
+         f"{hot.mean() * 100:.1f}% of the probe side; {len(want_rows)} "
+         f"matches by numpy; inputs {in_bytes / 1e9:.3f} GB, output "
+         f"{out_bytes / 1e9:.3f} GB")
+    for label, config in (("monolithic", DistJoinConfig()),
+                          ("exchange_chunks=3",
+                           DistJoinConfig(exchange_chunks=3))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _run in range(2):
+            info = {}
+            t0 = time.perf_counter()
+            columns, live, totals = dist_join.distributed_join(
+                bk, bv, {"x": bx}, pk, pv, {"y": py}, mesh=mesh,
+                config=config, info_out=info)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        shards = dist_join.shard_inputs(mesh, bk, bv, {"x": bx}, pk, pv,
+                                        {"y": py})
+        dev_times = []
+        for _run in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist_join.distributed_join_device(
+                *shards, mesh, info["hot_keys"],
+                np.ones(len(info["hot_keys"]), bool), config)
+            torch.cuda.synchronize()
+            dev_times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        _profile_device(torch, f"7b {label} distributed_join_device",
+                        lambda: dist_join.distributed_join_device(
+                            *shards, mesh, info["hot_keys"],
+                            np.ones(len(info["hot_keys"]), bool), config))
+        del shards
+        out = dist_join.collect_to_host(columns, live, mesh)
+        del columns, live
+        got_y = out["p.y"]
+        if int(np.sum(totals)) != len(want_rows) or len(got_y) != len(
+                want_rows):
+            _fail(f"7b {label}: {len(got_y)} rows, totals {totals}, numpy "
+                  f"{len(want_rows)}")
+        if not np.array_equal(np.sort(got_y), want_rows):
+            _fail(f"7b {label}: the matched probe rows differ from numpy's")
+        pick = rng.integers(0, len(got_y), 1 << 16)
+        y = got_y[pick]
+        if not (np.array_equal(out["__build_key"][pick], pk[y])
+                and np.array_equal(out["b.x"][pick],
+                                   bx[row_of_key[pk[y]]])):
+            _fail(f"7b {label}: sampled output rows differ from numpy")
+        _log(f"7b {label}: info {json.dumps({k: (v.tolist() if hasattr(v, 'tolist') else v) for k, v in info.items()})}; "
+             f"distributed_join {times[0]:.1f} / {times[1]:.1f} ms "
+             f"(upload, hot-key detection and join), "
+             f"distributed_join_device {dev_times[0]:.1f} / "
+             f"{dev_times[1]:.1f} ms; peak device memory "
+             f"{peak / mib:.1f} MiB (torch.cuda.max_memory_allocated); "
+             f"{len(got_y)} rows: every matched probe row once, 65536 "
+             f"sampled rows equal to numpy")
+        del out, got_y
+    dist.destroy_process_group()
+
+    # 7c: two ranks on this one card over gloo, one process each
+    repo = os.path.dirname(os.path.abspath(__file__))
+    outdir = tempfile.mkdtemp(prefix="rjt_dist_ranks_")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "radixjoin_tpu_torch.tools.multihost_worker",
+         "--pid", str(r), "--nprocs", "2", "--port", str(port),
+         "--device", DIST_RANK_DEVICE, "--backend", "gloo",
+         "--out", os.path.join(outdir, f"rank{r}.pkl"),
+         "--dist-chunks", "0,3"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            _fail(f"7c: rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    records = []
+    for r in range(2):
+        with open(os.path.join(outdir, f"rank{r}.pkl"), "rb") as f:
+            records.append(pickle.load(f))  # written by the ranks above
+    for rec in records:
+        if rec["backend"] != "gloo" or rec["device"] != DIST_RANK_DEVICE:
+            _fail(f"7c: rank {rec['rank']} ran {rec['backend']} on "
+                  f"{rec['device']}")
+        for key, want in one_rank.items():
+            for run in ("cold", "warm"):
+                got = rec["plans"][key][run]["columns"]
+                if not _same_columns(np, got, want, ordered=False):
+                    _fail(f"7c rank {rec['rank']} {key} {run}: rows differ "
+                          f"from 7a's one rank")
+                if not _same_columns(
+                        np, got, records[0]["plans"][key][run]["columns"]):
+                    _fail(f"7c {key} {run}: the ranks' results differ")
+    times = {k: (round(v["cold"]["ms"], 1), round(v["warm"]["ms"], 1),
+                 v["warm"]["host_syncs"])
+             for k, v in records[0]["plans"].items()}
+    _log(f"7c: two ranks on {DIST_RANK_DEVICE} over gloo in {time.perf_counter() - t0:.1f}"
+         f" s: every scenario cold and warm equal on both ranks (row for row) "
+         f"and to 7a's one rank (as row multisets); rank 0 (cold ms, warm ms, warm fetches): "
+         f"{json.dumps(times)}")
+
+    # 7d: the SQL entry point with the harness's distributed switch
+    on_card = harness_run.JobHarness(sql["plans_path"], sql["source"])
+    on_card.distributed = True
+    for name in ("q1a", "q_varchar"):
+        line = []
+        for run in ("cold", "warm"):
+            res, ms, _c, _d = on_card.run_query(name)
+            actual = res.to_host().to_rows()
+            checks = ["sqlite"]
+            ok, detail = oracle.rows_equal(actual, sql["sql_rows"][name])
+            if ok and name in sql["expected"]:
+                checks.append("row oracle")
+                ok, detail = oracle.rows_equal(actual, sql["expected"][name])
+            if not ok or res.num_rows == 0:
+                _fail(f"7d {name} {run}: {res.num_rows} rows, {detail}")
+            line.append(f"{run} {ms:.1f} ms")
+        _log(f"7d {name} through JobHarness.run_query with distributed on "
+             f"({on_card.dist_mesh().backend}, one rank): "
+             f"{', '.join(line)}, {res.num_rows} rows equal to "
+             f"{' and '.join(checks)}")
+    on_card.close()
+    if dist.is_initialized():
+        _fail("7d: the harness left its process group open")
+    sql["tmp"].cleanup()
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    _log(f"distributed path kernel launches: {json.dumps(launches)}")
+    if not all(launches[k] > 0 for k in DIST_PATH_KERNELS):
+        _fail(f"a kernel of the distributed path was not launched: "
+              f"{launches}")
     return launches
+
+
+#: kernels the distributed path launches (the merge join's expansion)
+DIST_PATH_KERNELS = ("window_gather", "blocked_window_gather_multi")
+#: 7b's build and probe rows
+DIST_JOIN_ROWS = (1 << 22, 1 << 24)
+#: the device both ranks of 7c share
+DIST_RANK_DEVICE = "cuda:0"
 
 
 def profile_warm(torch, rt, plan, ctx, name: str) -> None:
@@ -1540,8 +1926,13 @@ def main() -> None:
     mb_launches = run_memory_and_batch(torch, np, rt, kernels, main_path)
     phase_done("phase 5 (memory and batch)")
     # phase 6: the wave executor, the knobs, SQL to result, counted
-    sq_launches = run_shared_and_sql(torch, np, rt, kernels, main_path, args)
+    sq_launches, sql_state = run_shared_and_sql(torch, np, rt, kernels,
+                                                main_path, args)
     phase_done("phase 6 (wave executor, knobs, SQL to result)")
+    # phase 7: the distributed layer, counted
+    dist_launches = run_distributed(torch, np, rt, kernels, main_path,
+                                    sql_state, args)
+    phase_done("phase 7 (distributed layer)")
     _log(f"card: {smi}")
 
     meta = {
@@ -1574,6 +1965,7 @@ def main() -> None:
             "pct_of_bound": rec["pct_of_bound"],
             "launches_memory_batch": mb_launches[name],
             "launches_shared_sql": sq_launches[name],
+            "launches_dist": dist_launches[name],
         })
         _log(f"{name}: the times below are at {rec['shape']}; bound from "
              f"{rec['bound_bytes']} bytes at {HBM_BYTES_PER_S / 1e9:.0f} "

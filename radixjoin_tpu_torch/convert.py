@@ -7,9 +7,12 @@ The copies are fresh objects, so none of the state the JAX package caches
 on its own objects (upload memos on columns; learned buckets, structure
 caches and join totals on plans) is shared: the two engines can run the
 same query side by side in one process without specializing each other.
+A JAX-package ``DistJoinConfig`` is carried over by its field names.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from .dtypes import DataType
 from .plan.ir import Plan
@@ -44,9 +47,16 @@ def _copy_input(table) -> ColumnarTable:
     return ColumnarTable(table.num_rows, cols, _host=host)
 
 
-def from_reference(ref_plan) -> Plan:
-    """The port's copy of a radixjoin_tpu ``Plan``: same nodes and root,
-    inputs copied (see :func:`_copy_input`)."""
+def from_reference(ref_plan):
+    """The port's copy of a radixjoin_tpu ``Plan`` (same nodes and root,
+    inputs copied, see :func:`_copy_input`) or ``DistJoinConfig`` (the
+    port's dataclass with every field's value; a field the port lacks
+    raises ``TypeError``)."""
+    if type(ref_plan).__name__ == "DistJoinConfig":
+        from .parallel.dist_join import DistJoinConfig
+
+        return DistJoinConfig(**{f.name: getattr(ref_plan, f.name)
+                                 for f in dataclasses.fields(ref_plan)})
     plan = Plan()
     for node in ref_plan.nodes:
         attrs = [(int(ci), DataType(int(dt))) for ci, dt in node.output_attrs]

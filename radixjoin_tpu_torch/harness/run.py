@@ -15,7 +15,14 @@ writes a small set of JOB-shaped query documents in the same layout.
 CLI (runs on the CUDA card unless ``--platform cpu``):
     python -m radixjoin_tpu_torch.harness.run plans.json [query ...] \
         [--data-dir imdb/ | --scale 0.001] [--verify] [--repeat N] \
-        [--batch] [--profile DIR] [--platform cpu|cuda]
+        [--batch | --distributed [--dist-chunks N] [--dist-bloom-bits B] \
+        [--dist-feedback on|off]] [--profile DIR] [--platform cpu|cuda]
+
+``--distributed`` runs every plan through the distributed executor
+(``parallel/dist_executor.py``). Started by a launcher that sets ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``, the harness joins that
+process group (every rank runs the same queries); without them it opens a
+one-rank group: NCCL on the card, gloo with ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import time
 from typing import Dict, List, Optional
 
@@ -104,8 +112,44 @@ class JobHarness:
         self.source = source
         self.context = build_context(device)
 
+    distributed = False  # set by main's --distributed flag
+    dist_config = None  # optional DistJoinConfig (the --dist-* flags)
+    _mesh = None
+    _owns_group = False
+
     def close(self):
+        if self._owns_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            self._owns_group = False
+            self._mesh = None
         destroy_context(self.context)
+
+    def dist_mesh(self):
+        """The mesh ``run_query`` runs distributed plans over: the group a
+        launcher's environment names, else a one-rank group on this
+        context's device (joined once; left again by :meth:`close`)."""
+        if self._mesh is None:
+            import torch.distributed as dist
+
+            from ..parallel import make_mesh, multihost
+
+            device = self.context.device
+            device = None if device.type == "cuda" else device
+            if not dist.is_initialized():
+                env = os.environ
+                if all(k in env for k in ("RANK", "WORLD_SIZE",
+                                          "MASTER_ADDR", "MASTER_PORT")):
+                    address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+                    multihost.init(address, int(env["WORLD_SIZE"]),
+                                   int(env["RANK"]), device=device)
+                else:
+                    multihost.init(f"localhost:{_free_port()}", 1, 0,
+                                   device=device)
+                self._owns_group = True
+            self._mesh = make_mesh(device=device)
+        return self._mesh
 
     def sql(self, name: str) -> str:
         with open(f"{self.sql_dir}/{name}.sql") as f:
@@ -121,14 +165,30 @@ class JobHarness:
 
     def run_query(self, name: str, verify: bool = False, sqlite_oracle=None):
         parsed, plan = self.build_plan(name)
-        t0 = time.perf_counter()
-        result = execute(plan, self.context)
-        runtime_ms = (time.perf_counter() - t0) * 1e3
+        if self.distributed:
+            from ..parallel.dist_executor import execute_distributed
+
+            mesh = self.dist_mesh()
+            t0 = time.perf_counter()
+            host = execute_distributed(plan, mesh=mesh,
+                                       config=self.dist_config)
+            result = ColumnarTable.from_host(host)  # paged, like execute()
+            runtime_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            t0 = time.perf_counter()
+            result = execute(plan, self.context)
+            runtime_ms = (time.perf_counter() - t0) * 1e3
         correct = None
         detail = None
         if verify:
             correct, detail = verify_result(parsed, plan, result, sqlite_oracle)
         return result, runtime_ms, correct, detail
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def _sql_directory(doc: dict, plans_path: str) -> str:
@@ -185,12 +245,35 @@ def main(argv=None):
                              "as one execute_many() batch (overlapped "
                              "dispatch + host transfers) and report the "
                              "batch wall-clock instead of per-query times")
+    parser.add_argument("--distributed", action="store_true",
+                        help="execute every plan over the ranks of a process "
+                             "group (parallel/dist_executor.py) instead of "
+                             "the single-card engine: the launcher's group "
+                             "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) "
+                             "or a one-rank group on this device")
+    parser.add_argument("--dist-chunks", type=int, default=None,
+                        metavar="N",
+                        help="with --distributed: split the exchange into N "
+                             "overlappable key-space chunks "
+                             "(DistJoinConfig.exchange_chunks)")
+    parser.add_argument("--dist-bloom-bits", type=int, default=None,
+                        metavar="BITS",
+                        help="with --distributed: cap the build-side Bloom "
+                             "semi-join bitmap (0 disables; default 2^18)")
+    parser.add_argument("--dist-feedback", choices=["on", "off"],
+                        default=None,
+                        help="with --distributed: cardinality feedback "
+                             "(replay of repeat executions without a host "
+                             "sync a join; default on)")
     parser.add_argument("--platform", choices=["cpu", "cuda"],
                         default="cuda",
                         help="the device the engine runs on: the CUDA card "
                              "(default; fails without one) or the CPU, where "
                              "every kernel takes its plain PyTorch version")
     args = parser.parse_args(argv)
+    if args.batch and args.distributed:
+        parser.error("--batch and --distributed are mutually exclusive "
+                     "(the batch path runs the single-card fused engine)")
 
     with open(args.plans) as f:
         doc = json.load(f)
@@ -213,6 +296,19 @@ def main(argv=None):
 
     harness = JobHarness(args.plans, source, sql_dir,
                          device="cpu" if args.platform == "cpu" else None)
+    harness.distributed = args.distributed
+    if (args.dist_chunks is not None or args.dist_bloom_bits is not None
+            or args.dist_feedback is not None):
+        from ..parallel import DistJoinConfig
+
+        overrides = {}
+        if args.dist_chunks is not None:
+            overrides["exchange_chunks"] = args.dist_chunks
+        if args.dist_bloom_bits is not None:
+            overrides["bloom_max_bits"] = args.dist_bloom_bits
+        if args.dist_feedback is not None:
+            overrides["feedback"] = args.dist_feedback == "on"
+        harness.dist_config = DistJoinConfig(**overrides)
 
     profile_ctx = None
     if args.profile:
@@ -278,11 +374,11 @@ def main(argv=None):
             trace = os.path.join(args.profile, "trace.json")
             profile_ctx.export_chrome_trace(trace)
             print(f"profiler trace written to {trace}")
+        harness.close()  # leaves a process group it joined, also on error
     print(f"Total: {total_ms:.2f} ms over {len(names)} queries")
     if args.output_runtime and (not args.verify or all_ok):
         with open(args.output_runtime, "w") as f:
             f.write(f"{int(total_ms * 1000)}\n")
-    harness.close()
     return 0 if all_ok else 1
 
 

@@ -11,6 +11,8 @@ in ``int64``: multiplies wrap, the two constants are written as their
 two's-complement ``int64`` values, and the logical ``>> 33`` is an
 arithmetic shift with the 31 kept bits masked. Its result is the uint64
 hash's bit pattern as ``int64`` (``murmur64_np(k).view(np.int64)``).
+:func:`umod` and :func:`udiv` take ``%`` and ``//`` of such a pattern as
+the unsigned number it stands for (torch's ``%`` and ``//`` are signed).
 """
 
 from __future__ import annotations
@@ -38,6 +40,30 @@ def murmur64(keys: torch.Tensor) -> torch.Tensor:
     k = k * _C2
     k = k ^ _lsr33(k)
     return k
+
+
+def _udivmod(h: torch.Tensor, n: int):
+    """Unsigned ``divmod`` of int64 bit patterns by ``1 <= n < 2^31``: long
+    division over the two 32-bit halves, every step exact in int64."""
+    if not 1 <= n < (1 << 31):
+        raise ValueError(f"divisor {n} outside [1, 2^31)")
+    hi = (h >> 32) & 0xFFFFFFFF
+    lo = h & 0xFFFFFFFF
+    q_hi, r_hi = hi // n, hi % n
+    rest = (r_hi << 32) | lo  # < n * 2^32 <= 2^63
+    return (q_hi << 32) | (rest // n), rest % n
+
+
+def umod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """``h % n`` for the uint64 numbers whose bit patterns ``h`` holds
+    (int64 in, int64 out, in ``[0, n)``)."""
+    return _udivmod(h, n)[1]
+
+
+def udiv(h: torch.Tensor, n: int) -> torch.Tensor:
+    """``h // n`` for the uint64 numbers whose bit patterns ``h`` holds,
+    returned as uint64 bit patterns in int64."""
+    return _udivmod(h, n)[0]
 
 
 def murmur64_np(keys: np.ndarray) -> np.ndarray:

@@ -886,3 +886,127 @@ def test_knobs_on_card_keep_the_rows(job_plans, knob, value, mode,
         for _run in ("cold", "warm"):
             _assert_same_rows(rt.execute(plans[shape], ctx),
                               fused_results[shape])
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer: a one-rank NCCL group on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_meshes(cuda_device):
+    """A one-rank NCCL group on the card (``multihost.init`` with no device
+    takes the card and NCCL) and a gloo group over the same rank for the
+    CPU route; both left at teardown."""
+    import socket
+
+    import torch.distributed as dist
+
+    from radixjoin_tpu_torch.parallel import make_mesh, multihost
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.init(f"localhost:{port}", 1, 0)
+    try:
+        on_card = make_mesh()
+        on_cpu = make_mesh(group=dist.new_group(backend="gloo"),
+                           device="cpu")
+        assert on_card.backend == "nccl" and on_card.device.type == "cuda"
+        yield on_card, on_cpu
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_case_inputs(n_build, n_probe, seed):
+    rng = np.random.default_rng(seed)
+    bk = rng.integers(0, n_build, n_build).astype(np.int64)
+    pk = rng.integers(0, 2 * n_build, n_probe).astype(np.int64)
+    pk[rng.random(n_probe) < 0.3] = 7  # a hot key
+    return (bk, rng.random(n_build) > 0.05,
+            {"x": rng.integers(0, 1 << 30, n_build).astype(np.int32),
+             "f": rng.random(n_build) > 0.5},
+            pk, rng.random(n_probe) > 0.05,
+            {"y": np.arange(n_probe, dtype=np.int64)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("sizes", [(300, 1000), (20_000, 200_000)])
+def test_dist_join_on_card_equals_cpu_route(nccl_meshes, sizes, chunks):
+    """distributed_join over NCCL on the card and over gloo on the CPU:
+    the same rows in the same order, totals and info; the expansion
+    launched the window gather (tables of at most 4096 entries) or the
+    blocked-window gather (larger ones)."""
+    from radixjoin_tpu_torch.parallel import DistJoinConfig, distributed_join
+    from radixjoin_tpu_torch.parallel.dist_join import collect_to_host
+
+    on_card, on_cpu = nccl_meshes
+    args = _dist_case_inputs(*sizes, seed=sizes[0])
+    config = DistJoinConfig(exchange_chunks=chunks)
+    out = []
+    kernels.reset_launch_counts()
+    for mesh in (on_card, on_cpu):
+        info = {}
+        columns, live, totals = distributed_join(*args, mesh=mesh,
+                                                 config=config, info_out=info)
+        out.append((collect_to_host(columns, live, mesh), totals, info))
+    torch.cuda.synchronize()
+    (rows_g, tot_g, info_g), (rows_c, tot_c, info_c) = out
+    np.testing.assert_array_equal(tot_g, tot_c)
+    assert {k: v for k, v in info_g.items() if k != "hot_keys"} == {
+        k: v for k, v in info_c.items() if k != "hot_keys"}
+    for k in rows_c:
+        assert rows_g[k].dtype == rows_c[k].dtype
+        np.testing.assert_array_equal(rows_g[k], rows_c[k])
+    counts = kernels.launch_counts()
+    small = sum(sizes) <= kernels.WINDOW_GATHER_MAX
+    assert counts["window_gather" if small
+                  else "blocked_window_gather_multi"] > 0
+
+
+@pytest.mark.cuda
+def test_execute_distributed_on_card_equals_cpu_route(nccl_meshes):
+    """Tiny S1 and F1 through execute_distributed cold and warm on the card
+    (NCCL) and on the CPU (gloo): the same rows in the same order; the
+    expansion's gather kernels launched on the card."""
+    from radixjoin_tpu_torch.parallel import dist_executor, multihost
+    from radixjoin_tpu_torch.tools.multihost_worker import table_columns
+
+    on_card, on_cpu = nccl_meshes
+    tables = SyntheticIMDB(scale=0.002, seed=0).generate(
+        list(job_shapes.S1_TABLES))
+    tables.update(job_shapes.f64_tables(20_000))
+    kernels.reset_launch_counts()
+    for build, lazy in ((job_shapes.s1_plan, False),
+                        (job_shapes.f64_plan, True)):
+        want = dist_executor.execute_distributed(build(tables, lazy=lazy),
+                                                 mesh=on_cpu)
+        plan = build(tables, lazy=lazy)
+        for run in ("cold", "warm"):
+            before = multihost.collective_stats()["host_syncs"]
+            got = dist_executor.execute_distributed(plan, mesh=on_card)
+            syncs = multihost.collective_stats()["host_syncs"] - before
+            assert got.num_rows == want.num_rows > 0
+            for (gv, gx), (wv, wx) in zip(table_columns(got),
+                                          table_columns(want)):
+                np.testing.assert_array_equal(gv, wv)
+                if gx.dtype == np.float64:  # by bit pattern (NaN, -0.0)
+                    gx, wx = gx.view(np.int64), wx.view(np.int64)
+                np.testing.assert_array_equal(gx, wx)
+            if run == "warm":
+                assert syncs == 2  # the root's check and its gather
+    counts = kernels.launch_counts()
+    assert counts["window_gather"] > 0
+    assert counts["blocked_window_gather_multi"] > 0
+
+
+@pytest.mark.cuda
+def test_make_mesh_without_a_group_raises(cuda_device):
+    import torch.distributed as dist
+
+    from radixjoin_tpu_torch.parallel import make_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="multihost.init"):
+        make_mesh()

@@ -223,10 +223,111 @@ def test_cli_profile_writes_a_trace(documents, tmp_path, capsys):
     capsys.readouterr()
 
 
-def test_cli_has_no_distributed_flags(documents):
-    for flag in ("--distributed", "--dist-chunks"):
+class _Captured(Exception):
+    pass
+
+
+def _harness_settings(run_module, argv, monkeypatch):
+    """``(distributed, dist_config)`` as ``run_module.main(argv)`` sets them
+    on its harness, read at the first query (which then stops the run)."""
+    seen = []
+
+    class Recorder:
+        distributed = False
+        dist_config = None
+
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def run_query(self, name, **kwargs):
+            seen.append((self.distributed, self.dist_config))
+            raise _Captured
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(run_module, "JobHarness", Recorder)
+    with pytest.raises(_Captured):
+        run_module.main(argv)
+    return seen[0]
+
+
+def test_cli_distributed_flags_parse_like_the_reference(documents, tmp_path,
+                                                        monkeypatch):
+    """Each combination of the --distributed flags gives the harness the
+    same ``distributed`` switch and a ``DistJoinConfig`` equal field by
+    field to the JAX CLI's; --batch and --distributed exclude each other
+    in both."""
+    import dataclasses
+
+    base = [documents[0], "q1a", "--data-dir", str(tmp_path),
+            "--platform", "cpu"]
+    combos = [
+        [],
+        ["--distributed"],
+        ["--distributed", "--dist-chunks", "3"],
+        ["--distributed", "--dist-bloom-bits", "0"],
+        ["--distributed", "--dist-feedback", "off"],
+        ["--distributed", "--dist-chunks", "4", "--dist-bloom-bits", "8192",
+         "--dist-feedback", "on"],
+    ]
+    for flags in combos:
+        dist_p, cfg_p = _harness_settings(port_run, base + flags, monkeypatch)
+        dist_r, cfg_r = _harness_settings(ref_run, base + flags, monkeypatch)
+        assert dist_p == dist_r == ("--distributed" in flags)
+        assert (cfg_p is None) == (cfg_r is None), flags
+        if cfg_p is not None:
+            assert [f.name for f in dataclasses.fields(cfg_p)] == [
+                f.name for f in dataclasses.fields(cfg_r)]
+            assert dataclasses.astuple(cfg_p) == dataclasses.astuple(cfg_r)
+    for module in (port_run, ref_run):
         with pytest.raises(SystemExit):
-            port_run.main([documents[0], flag, "--platform", "cpu"])
+            module.main(base + ["--batch", "--distributed"])
+
+
+def test_harness_joins_a_launchers_group(documents, port_tables,
+                                        monkeypatch):
+    """RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT name the group the
+    harness joins for --distributed (here one rank); it leaves it at close,
+    and its results equal the single-card engine's."""
+    import torch.distributed as dist
+
+    from test_torch_dist import _free_port
+
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("MASTER_ADDR", "localhost"),
+                       ("MASTER_PORT", str(_free_port()))):
+        monkeypatch.setenv(key, value)
+    h = port_run.JobHarness(documents[0],
+                            port_run.TableSource(host_tables=port_tables),
+                            device="cpu")
+    h.distributed = True
+    try:
+        res, _ms, _ok, _detail = h.run_query("q_alias")
+        mesh = h.dist_mesh()
+        assert (mesh.size, mesh.rank, mesh.backend) == (1, 0, "gloo")
+    finally:
+        h.close()
+    assert not dist.is_initialized()
+    _parsed, plan = h.build_plan("q_alias")
+    single = port.execute(plan, port.build_context("cpu"))
+    ok, detail = port_oracle.rows_equal(port_rows(res), port_rows(single))
+    assert ok, detail
+
+
+def test_cli_distributed_run_on_the_cpu(documents, capsys):
+    """--distributed with --platform cpu: a one-rank gloo group opened by
+    the harness and left at its close; every result verified against the
+    row oracle and sqlite, also on the warm repeat."""
+    import torch.distributed as dist
+
+    rc = port_run.main([documents[0], "q1a", "q_varchar", "--scale",
+                        str(SCALE), "--platform", "cpu", "--verify",
+                        "--distributed", "--repeat", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert out.count("Result correct: True") == 2
+    assert not dist.is_initialized()
 
 
 def test_cli_runs_on_the_card_by_default(documents):

@@ -319,7 +319,10 @@ def test_package_imports_neither_jax_nor_reference():
     for module in ("sql/predicate.py", "sql/parser.py", "sql/frontend.py",
                    "sql/explain.py", "storage/ingest.py", "harness/oracle.py",
                    "harness/run.py", "harness/datagen.py",
-                   "plan/executor.py"):
+                   "plan/executor.py", "parallel/mesh.py",
+                   "parallel/multihost.py", "parallel/shuffle.py",
+                   "parallel/dist_join.py", "parallel/dist_executor.py",
+                   "tools/multihost_worker.py"):
         assert os.path.join("radixjoin_tpu_torch", module) in seen
 
 
