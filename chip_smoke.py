@@ -137,13 +137,40 @@ Phases (any failure exits non-zero; the last line of standard output is
       ``distributed`` on (the harness opens and leaves its own one-rank
       NCCL group), over phase 6's data, against sqlite and the row oracle.
 
+8. The tools a user runs, on the card:
+   a. the bench (``python -m radixjoin_tpu_torch.bench``) as a subprocess
+      over the query documents (``BENCH_PLANS=builtin``) at ``--scale``
+      with its defaults (two passes, device ms, batch, the sf0.01
+      secondary pass): one JSON line whose result rows equal the rows 6c
+      verified against sqlite for the same documents, every degradation
+      tally zero and every bonus stage reported, and rows 1 and 2
+      (``window_gather``, ``blocked_window_gather_multi``) launched in
+      its warm-up and timed passes (the bench's ``detail.launches``); its
+      total, per-query best, batch wall, stage split and device ms logged;
+   b. the fuzz campaign (``tools/fuzz_campaign.py``) in this process:
+      seeds 0-255 in all six modes (auto, shared, stepwise, spill, dist,
+      dist_chunked; the distributed ones cold and warm on a one-rank NCCL
+      group), each run held to the row oracle;
+   c. the roofline harness (``harness/roofline.py``) at 2^22 probe rows:
+      device ms (devtime's slope), rows/s and share of 3,350 GB/s a case;
+   d. ``tools/scaling_bench.py --ndev 1`` (NCCL) in join mode with
+      ``--breakdown``, and the worker's ``bench_join`` on a one-rank NCCL
+      group and on two gloo ranks sharing ``cuda:0``: result rows equal to
+      numpy; each reports rank 0's kernel launches in its record.
+
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
 "pct_of_bound", "launches_memory_batch", "launches_shared_sql",
-"launches_dist"}, ...]}`` (``launches`` counts phase 3 for the engine's
-three kernels and phase 4 for the others; ``launches_memory_batch`` counts
-phase 5, ``launches_shared_sql`` phase 6 and ``launches_dist`` phase 7).
+"launches_dist", "launches_bench", "launches_fuzz", "launches_roofline",
+"launches_scaling", "launches_tools"}, ...]}`` (``launches`` counts phase
+3 for the engine's three kernels and phase 4 for the others;
+``launches_memory_batch`` counts phase 5, ``launches_shared_sql`` phase 6,
+``launches_dist`` phase 7; ``launches_bench`` counts 8a's warm-up and
+timed passes, ``launches_fuzz`` 8b, ``launches_roofline`` 8c (wrapper
+calls: a CUDA graph's replay launches again uncounted),
+``launches_scaling`` rank 0 of each 8d cluster, and ``launches_tools``
+is their sum, the whole of phase 8).
 
 With ``--kernels``, only the page gather's decode cases of phase 2 run, to
 compare two builds of ``paged_window_gather`` on one card: this
@@ -1306,7 +1333,7 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
 
     # 6c: SQL to result, lazy inputs and eager pages
     small_limit = 1_000_000
-    expected, sql_rows = {}, {}
+    expected, sql_rows, doc_rows = {}, {}, {}
     for eager in ("off", "on"):
         before = kernels.launch_counts()
         with _Env(RJT_EAGER_PAGES=eager):
@@ -1338,6 +1365,8 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
                         and _same_rows(np, again, cpu_res)):
                     _fail(f"6c {name} (eager pages {eager}): rows differ "
                           f"from the cpu route")
+                if eager == "off":
+                    doc_rows[name] = res.num_rows
                 _log(f"6c {name} (eager pages {eager}): cold {ms:.1f} ms, "
                      f"warm {warm_ms:.1f} ms, {res.num_rows} rows equal to "
                      f"{', '.join(checks)} and the cpu route; inputs "
@@ -1403,7 +1432,8 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     del small, small_sqlite
     # phase 7d runs two of the documents again over the same data
     sql_state = {"tmp": tmp, "plans_path": plans_path, "source": source,
-                 "sql_rows": sql_rows, "expected": expected}
+                 "sql_rows": sql_rows, "expected": expected,
+                 "doc_rows": doc_rows}
 
     # 6d: each knob against its default, inside whole plans
     knobs = [("default", {}),
@@ -1471,14 +1501,6 @@ class _HostResult:
         return self.host
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _dist_run(torch, dx, plan, mesh, config):
     """One ``execute_distributed``: ``(result, wall ms, host syncs seen by
     torch's sync debug mode, collective-stats delta)``."""
@@ -1506,28 +1528,17 @@ def _profile_device(torch, label: str, fn) -> None:
     """Run ``fn()`` once under torch.profiler and log its wall ms, the
     device's busy ms (device-side kernel and copy time summed), the idle
     share and the eight largest device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from radixjoin_tpu_torch.harness import kernel_timing
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    if not events:
+    prof = kernel_timing.profile_busy(fn)
+    if prof["busy_ms"] is None:
         _log(f"{label} profile: device time not measured (the profiler "
              f"reported none)")
         return
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    _log(f"{label} profile: {wall_ms:.1f} ms wall under the profiler, "
-         f"device busy {busy_ms:.3f} ms, idle share "
-         f"{1 - busy_ms / wall_ms:.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    _log(f"{label} profile: {prof['wall_ms']:.1f} ms wall under the "
+         f"profiler, device busy {prof['busy_ms']:.3f} ms, idle share "
+         f"{prof['idle_share']:.3f}")
+    for e in prof["events"][:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
              f"{e.key[:90]}")
 
@@ -1578,7 +1589,7 @@ def run_distributed(torch, np, rt, kernels, main, sql, args):
     kernels.reset_launch_counts()
 
     # 7a: a one-rank NCCL group; the plans of phase 3 cold, then warm
-    multihost.init(f"localhost:{_free_port()}", 1, 0)
+    multihost.init(f"localhost:{multihost.free_port()}", 1, 0)
     mesh = make_mesh()
     if mesh.backend != "nccl" or mesh.device.type != "cuda":
         _fail(f"7a: the mesh is {mesh.backend} on {mesh.device}")
@@ -1726,7 +1737,7 @@ def run_distributed(torch, np, rt, kernels, main, sql, args):
     # 7c: two ranks on this one card over gloo, one process each
     repo = os.path.dirname(os.path.abspath(__file__))
     outdir = tempfile.mkdtemp(prefix="rjt_dist_ranks_")
-    port = _free_port()
+    port = multihost.free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "radixjoin_tpu_torch.tools.multihost_worker",
@@ -1813,15 +1824,224 @@ DIST_JOIN_ROWS = (1 << 22, 1 << 24)
 DIST_RANK_DEVICE = "cuda:0"
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the bench, the fuzz campaign, the roofline and the scaling bench
+# ---------------------------------------------------------------------------
+
+
+def _subprocess(label: str, cmd, timeout: float, **env):
+    """Run ``cmd`` from the repository root with ``env`` over this process's
+    environment (a value of None removes the variable); fail the smoke on a
+    non-zero exit. Returns ``(stdout, stderr)``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ)
+    for k, v in env.items():
+        if v is None:
+            full.pop(k, None)
+        else:
+            full[k] = v
+    proc = subprocess.run(cmd, cwd=repo, env=full, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        _fail(f"{label}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr
+
+
+def _bench_join_cluster(label: str, nprocs: int, device, backend, rows: int):
+    """The worker's ``bench_join`` on ``nprocs`` rank processes; rank 0's
+    record, its result rows held to numpy."""
+    import tempfile
+
+    import numpy as np
+
+    from radixjoin_tpu_torch.parallel import multihost
+    from radixjoin_tpu_torch.tools import multihost_worker as worker
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    outdir = tempfile.mkdtemp(prefix="rjt_bench_join_")
+    port = multihost.free_port()
+    extra = (["--device", device] if device else []) + (
+        ["--backend", backend] if backend else [])
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "radixjoin_tpu_torch.tools.multihost_worker",
+         "--pid", str(r), "--nprocs", str(nprocs), "--port", str(port),
+         "--scenario", "bench_join", "--bench-rows", str(rows),
+         "--repeats", "3", "--out", os.path.join(outdir, f"rank{r}.json")]
+        + extra, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(nprocs)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            _fail(f"{label}: rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    with open(os.path.join(outdir, "rank0.json")) as f:
+        record = json.load(f)
+    bk, bv, _bp, pk, pv, _pp = worker.bench_join_inputs(rows)
+    want = int((pv & np.isin(pk, bk[bv])).sum())
+    if record["result_rows"] != want or record["processes"] != nprocs:
+        _fail(f"{label}: {record['result_rows']} rows on "
+              f"{record['processes']} ranks, numpy {want}")
+    _log(f"{label}: {record['processes']} rank(s), {record['backend']} on "
+         f"{record['device']}, {rows} probe rows: best "
+         f"{record['best_ms']:.2f} ms, mean {record['mean_ms']:.2f} ms, "
+         f"sigma {record['sigma_ms']:.2f} ms over 3 runs after "
+         f"{record['warmup_dropped']} warm-ups; {want} rows equal to numpy")
+    return record
+
+
+def run_tools(torch, np, kernels, sql, args):
+    """Phase 8 (see the module docstring). Returns the launch counts of
+    8a-8d apart (``bench``, ``fuzz``, ``roofline``, ``scaling``) and
+    summed (``tools``)."""
+    from radixjoin_tpu_torch import engine, hardware
+    from radixjoin_tpu_torch.harness import roofline
+    from radixjoin_tpu_torch.tools import fuzz_campaign, scaling_bench
+
+    # 8a: the bench as a user runs it, over the built-in documents
+    engine.clear_device_caches()
+    t0 = time.perf_counter()
+    out, err = _subprocess(
+        "8a bench", [sys.executable, "-m", "radixjoin_tpu_torch.bench"], 900,
+        BENCH_PLANS="builtin", BENCH_SCALE=str(args.scale),
+        **{k: None for k in ("BENCH_PLATFORM", "BENCH_REPEAT",
+                             "BENCH_BATCH", "BENCH_DEVICE_MS",
+                             "BENCH_SECONDARY_SCALE", "BENCH_QUERIES",
+                             "BENCH_SQL_DIR", "BENCH_RSS_PROFILE")})
+    bench_s = time.perf_counter() - t0
+    lines = out.splitlines()
+    if len(lines) != 1:
+        _fail(f"8a: the bench printed {len(lines)} lines on stdout")
+    rec = json.loads(lines[0])
+    d = rec["detail"]
+    want_rows = sum(sql["doc_rows"].values())
+    if d["backend"] != "cuda" or d["queries"] != len(sql["doc_rows"]):
+        _fail(f"8a: backend {d['backend']}, {d['queries']} queries")
+    if d["result_rows"] != want_rows:
+        _fail(f"8a: {d['result_rows']} result rows, phase 6c verified "
+              f"{want_rows} against sqlite ({json.dumps(sql['doc_rows'])})")
+    tallies = [d["degradations"], d.get("degradations_process", {}),
+               d.get("secondary", {}).get("degradations", {})]
+    if any(v for t in tallies for k, v in t.items() if k != "queries"):
+        _fail(f"8a: a degradation tally rose: {json.dumps(tallies)}")
+    missing = [k for k in ("device_ms", "batch_wall_ms", "secondary",
+                           "stage_split_ms", "warmup_phase_s")
+               if k not in d]
+    if missing or d["device_ms"]["queries_measured"] != d["queries"]:
+        _fail(f"8a: bonus stages did not report: {missing}; "
+              f"{json.dumps(d.get('device_ms'))}")
+    bench_launches = d["launches"]
+    if not all(bench_launches[k] > 0 for k in DIST_PATH_KERNELS):
+        _fail(f"8a: a kernel of the bench's path was not launched: "
+              f"{json.dumps(bench_launches)}")
+    for line in err.splitlines():
+        if line.startswith("bench: ") and ("best ms" in line
+                                           or "join paths" in line
+                                           or "warmup" in line):
+            _log(f"8a {line}")
+    _log(f"8a bench ({bench_s:.1f} s): {rec['metric']} = {rec['value']} ms, "
+         f"vs_baseline {rec['vs_baseline']}; per-query best "
+         f"{json.dumps(d['slowest'])}; batch {d['batch_wall_ms']} ms; stage "
+         f"split {json.dumps(d['stage_split_ms'])}; device ms "
+         f"{json.dumps(d['device_ms'])}; secondary "
+         f"{json.dumps(d['secondary'])}; {d['result_rows']} rows equal to "
+         f"phase 6c's sqlite-checked rows; degradations zero; kernel "
+         f"launches {json.dumps(bench_launches)}")
+
+    # 8b: the fuzz campaign in this process, on the card
+    kernels.reset_launch_counts()
+    stats = fuzz_campaign.run_campaign(FUZZ_SEEDS, 0,
+                                       fuzz_campaign.MODES)
+    if stats["failures"] or min(stats["runs"].values()) < FUZZ_SEEDS:
+        _fail(f"8b fuzz campaign: {stats}")
+    fuzz_launches = kernels.launch_counts()
+    _log(f"8b fuzz campaign: seeds [0, {FUZZ_SEEDS}) x "
+         f"{list(fuzz_campaign.MODES)} clean in {stats['seconds']:.1f} s, "
+         f"checked runs {json.dumps(stats['runs'])}, kernel launches "
+         f"{json.dumps(fuzz_launches)}")
+
+    # 8c: the roofline harness
+    kernels.reset_launch_counts()
+    spec = hardware.detect()
+    for m in roofline.run(ROOFLINE_SIZE, 5, spec=spec):
+        _log(f"8c roofline {m.kernel:<20} rows {m.rows:>9,} {m.ms:9.3f} ms "
+             f"({m.mode}) {m.rows_per_s / 1e9:7.3f} G rows/s "
+             f"{m.eff_gbps:8.1f} GB/s, {m.pct_roofline * 100:5.1f}% of "
+             f"{spec.hbm_gbps:.0f} GB/s")
+    torch.cuda.synchronize()
+    roofline_launches = kernels.launch_counts()
+    _log(f"8c roofline kernel launches (wrapper calls): "
+         f"{json.dumps(roofline_launches)}")
+
+    # 8d: weak scaling at one NCCL rank; the worker's bench_join on one
+    # NCCL rank and on two gloo ranks sharing this card
+    engine.clear_device_caches()
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="rjt_scaling_"), "out.json")
+    out, _err = _subprocess(
+        "8d scaling_bench", [sys.executable, "-m",
+                             "radixjoin_tpu_torch.tools.scaling_bench",
+                             "--ndev", "1", "--mode", "join", "--breakdown",
+                             "--rows", str(SCALING_ROWS), "--json", path],
+        600)
+    with open(path) as f:
+        (res,) = json.load(f)
+    bk, bv, _bpl, pk, pv, _ppl = scaling_bench.make_join_data(
+        1, SCALING_ROWS, 0.2)
+    want = int((pv & np.isin(pk, bk[bv])).sum())
+    if res["out_rows"] != want or res["backend"] != "nccl":
+        _fail(f"8d scaling_bench: {res}, numpy {want}")
+    _log(f"8d scaling_bench --ndev 1 ({res['backend']} on {res['device']}): "
+         f"{res['probe_rows']} probe rows in {res['s'] * 1e3:.2f} ms, "
+         f"{res['probe_rows_per_s'] / 1e6:.2f} M rows/s; exchange "
+         f"{res['phase_exchange_ms']:.2f} ms, expand "
+         f"{res['phase_expand_ms']:.2f} ms, local sort+count "
+         f"{res['local_sort_count_ms']:.2f} ms, {res['bytes_sent_per_dev']:,} "
+         f"bytes in {res['collective_calls']} collective calls; {want} rows "
+         f"equal to numpy")
+    one = _bench_join_cluster("8d bench_join one NCCL rank", 1, None, None,
+                              BENCH_JOIN_ROWS)
+    two = _bench_join_cluster("8d bench_join two gloo ranks",
+                              2, DIST_RANK_DEVICE, "gloo", BENCH_JOIN_ROWS)
+    if one["result_rows"] != two["result_rows"]:
+        _fail("8d bench_join: one rank and two ranks differ")
+    scaling_launches = {k: res["launches"][k] + one["launches"][k]
+                        + two["launches"][k] for k in fuzz_launches}
+    _log(f"8d kernel launches (rank 0 of each cluster): "
+         f"{json.dumps(scaling_launches)}")
+
+    launches = {"bench": bench_launches, "fuzz": fuzz_launches,
+                "roofline": roofline_launches, "scaling": scaling_launches}
+    launches["tools"] = {k: sum(c[k] for c in launches.values())
+                         for k in fuzz_launches}
+    _log(f"phase 8 kernel launches: {json.dumps(launches['tools'])}")
+    if not all(launches["tools"][k] > 0 for k in DIST_PATH_KERNELS):
+        _fail(f"a kernel of the tools' path was not launched: {launches}")
+    return launches
+
+
+#: 8b's seeds (every one in each of the six modes)
+FUZZ_SEEDS = 256
+#: 8c's probe rows
+ROOFLINE_SIZE = 1 << 22
+#: 8d: probe rows a rank of scaling_bench (its default) and of bench_join
+SCALING_ROWS = 200_000
+BENCH_JOIN_ROWS = 1 << 20
+
+
 def profile_warm(torch, rt, plan, ctx, name: str) -> None:
     """Where a warm run's time goes: the fused run with its fetches and
     root decode, the result page encode, and the device's busy time from
     torch.profiler (device-side kernel and copy time summed), hence its
     idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from radixjoin_tpu_torch import engine
+    from radixjoin_tpu_torch.harness import kernel_timing
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1829,35 +2049,23 @@ def profile_warm(torch, rt, plan, ctx, name: str) -> None:
     t1 = time.perf_counter()
     engine._encode_result(host)
     t2 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t3 = time.perf_counter()
-        rt.execute(plan, ctx)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-    # device-side events only (kernels and copies): the CPU operators that
-    # launched them carry the same device time and would count it twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    wall_ms = (t4 - t3) * 1e3
+    prof = kernel_timing.profile_busy(lambda: rt.execute(plan, ctx))
     _log(f"{name} warm breakdown: fused run + fetch + root decode "
          f"{(t1 - t0) * 1e3:.1f} ms, result page encode "
          f"{(t2 - t1) * 1e3:.1f} ms; the engine's own stage clock "
          f"{json.dumps(plan._last_exec_stats)}")
-    if not events:
+    if prof["busy_ms"] is None:
         _log(f"{name} warm profile: device time not measured (the "
              f"profiler reported none)")
         return
-    _log(f"{name} warm profile: execute {wall_ms:.1f} ms wall under the "
-         f"profiler, device busy {busy_ms:.3f} ms, idle share "
-         f"{1 - busy_ms / wall_ms:.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    _log(f"{name} warm profile: execute {prof['wall_ms']:.1f} ms wall under "
+         f"the profiler, device busy {prof['busy_ms']:.3f} ms, idle share "
+         f"{prof['idle_share']:.3f}")
+    for e in prof["events"][:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
              f"{e.key[:90]}")
     # the hand kernels at this plan's own call shapes
-    for e in events:
+    for e in prof["events"]:
         if "bwg_kernel" in e.key or "gather_kernel" in e.key:
             _log(f"{name} warm hand kernel: "
                  f"{e.self_device_time_total / 1e3:.4f} ms over {e.count} "
@@ -1933,6 +2141,9 @@ def main() -> None:
     dist_launches = run_distributed(torch, np, rt, kernels, main_path,
                                     sql_state, args)
     phase_done("phase 7 (distributed layer)")
+    # phase 8: the bench, the fuzz campaign, roofline and scaling, counted
+    tools_launches = run_tools(torch, np, kernels, sql_state, args)
+    phase_done("phase 8 (bench, fuzz campaign, roofline, scaling)")
     _log(f"card: {smi}")
 
     meta = {
@@ -1966,6 +2177,11 @@ def main() -> None:
             "launches_memory_batch": mb_launches[name],
             "launches_shared_sql": sq_launches[name],
             "launches_dist": dist_launches[name],
+            "launches_bench": tools_launches["bench"][name],
+            "launches_fuzz": tools_launches["fuzz"][name],
+            "launches_roofline": tools_launches["roofline"][name],
+            "launches_scaling": tools_launches["scaling"][name],
+            "launches_tools": tools_launches["tools"][name],
         })
         _log(f"{name}: the times below are at {rec['shape']}; bound from "
              f"{rec['bound_bytes']} bytes at {HBM_BYTES_PER_S / 1e9:.0f} "

@@ -5,8 +5,9 @@ and copies the call launches, and the host time to issue a call.
 The event bracket is what a caller waits for when calls follow each other;
 it is the card's time only while one call keeps the card busier than the
 wrapper's host work keeps the host. The profiler's device time is the
-card's alone; the enqueue time is the host's alone. Used by
-``chip_smoke.py``.
+card's alone; the enqueue time is the host's alone. :func:`profile_busy`
+gives a whole run's device busy time and idle share. Used by
+``chip_smoke.py`` and ``radixjoin_tpu_torch/bench.py``.
 """
 
 from __future__ import annotations
@@ -108,6 +109,32 @@ def device_ms(fn: Callable, calls: int = 20,
     :func:`device_times`), or None where the profiler recorded none."""
     times = device_times(fn, calls, between)
     return sum(times.values()) if times else None
+
+
+def profile_busy(fn: Callable) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` and return the wall
+    milliseconds under the profiler (``fn`` then a synchronize), the
+    device's busy milliseconds (device-side kernel and copy time summed:
+    the CPU operators that launched them carry the same time and are left
+    out, so nothing counts twice), the idle share ``1 - busy / wall`` and
+    the device events, largest first. ``busy_ms`` and ``idle_share`` are
+    None where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted(_device_events(prof),
+                    key=lambda e: -e.self_device_time_total)
+    busy_ms = (sum(e.self_device_time_total for e in events) / 1e3
+               if events else None)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+            "events": events}
 
 
 def l2_flusher(device) -> Callable:

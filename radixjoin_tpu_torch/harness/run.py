@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
 import time
 from typing import Dict, List, Optional
 
@@ -145,7 +144,7 @@ class JobHarness:
                     multihost.init(address, int(env["WORLD_SIZE"]),
                                    int(env["RANK"]), device=device)
                 else:
-                    multihost.init(f"localhost:{_free_port()}", 1, 0,
+                    multihost.init(f"localhost:{multihost.free_port()}", 1, 0,
                                    device=device)
                 self._owns_group = True
             self._mesh = make_mesh(device=device)
@@ -183,12 +182,6 @@ class JobHarness:
         if verify:
             correct, detail = verify_result(parsed, plan, result, sqlite_oracle)
         return result, runtime_ms, correct, detail
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _sql_directory(doc: dict, plans_path: str) -> str:

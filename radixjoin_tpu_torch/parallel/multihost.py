@@ -70,6 +70,15 @@ def init(coordinator: str, num_processes: int, process_id: int,
         world_size=num_processes, rank=process_id)
 
 
+def free_port() -> int:
+    """A free TCP port on localhost, for a group's ``tcp://`` rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def active() -> bool:
     """True when more than one rank shares the group."""
     return dist.is_initialized() and dist.get_world_size() > 1

@@ -25,6 +25,11 @@ order, totals, ``info``, hot keys, host syncs) to ``--out`` and prints one
 ``OK`` line. The device is the card unless ``--device cpu``; the backend
 follows the device (NCCL on the card, gloo on the CPU) unless
 ``--backend`` names one.
+
+``--scenario bench_join`` runs instead a timed distributed shuffle join of
+``--bench-rows`` global probe rows (:func:`bench_join`): two warm-up runs,
+then ``--repeats`` fenced runs; rank 0 writes the best-of, mean and sigma
+as JSON to ``--out`` (the other ranks write ``OK``).
 """
 
 from __future__ import annotations
@@ -173,6 +178,54 @@ def join_cases():
     return cases
 
 
+def bench_join_inputs(n_probe: int):
+    """The inputs of :func:`bench_join`, the same on every rank
+    (``default_rng(11)``): ``n_probe / 4`` distinct build keys, 2% of each
+    side invalid, one build key on 10% of the probe side (the hot-key
+    broadcast path stays live)."""
+    n_build = n_probe // 4
+    rng = np.random.default_rng(11)
+    bk = rng.permutation(n_build * 2)[:n_build].astype(np.int64)
+    bv = rng.random(n_build) > 0.02
+    pk = rng.integers(0, n_build * 2, n_probe).astype(np.int64)
+    pk[rng.random(n_probe) < 0.10] = int(bk[0])  # one heavy hitter
+    pv = rng.random(n_probe) > 0.02
+    bp = {"x": rng.integers(0, 1 << 20, n_build).astype(np.int32)}
+    pp = {"y": rng.integers(0, 1 << 20, n_probe).astype(np.int32)}
+    return bk, bv, bp, pk, pv, pp
+
+
+def bench_join(mesh, n_probe: int, repeats: int) -> dict:
+    """``distributed_join_device`` at a fixed global size, timed by
+    ``scaling_bench.timed_join`` on :func:`bench_join_inputs`: 2 warm-up
+    runs (the first climbs the capacity ladder), then ``repeats`` runs,
+    each through a fence. Returns the record rank 0 writes."""
+    from ..ops import kernels
+    from .scaling_bench import timed_join
+
+    data = bench_join_inputs(n_probe)
+    warmup = 2  # the capacity ladder and the allocator settle
+    run = timed_join(mesh, data, repeats, warmup=warmup)
+    steady = [t * 1e3 for t in run["times"]]
+    mean = sum(steady) / len(steady)
+    sigma = (sum((t - mean) ** 2 for t in steady) / len(steady)) ** 0.5
+    return {
+        "scenario": "bench_join",
+        "processes": mesh.size,
+        "backend": mesh.backend,
+        "device": str(mesh.device),
+        "probe_rows": n_probe,
+        "build_rows": len(data[0]),
+        "result_rows": run["total"],
+        "best_ms": round(min(steady), 2),
+        "mean_ms": round(mean, 2),
+        "sigma_ms": round(sigma, 2),
+        "warmup_dropped": warmup,
+        "times_ms": [round(t, 2) for t in steady],
+        "launches": kernels.launch_counts(),
+    }
+
+
 def table_columns(table):
     """A HostTable as ``[(valid, values)]`` in row order, NULL values zeroed
     and VARCHAR as byte-string objects (b"" where NULL)."""
@@ -223,6 +276,13 @@ def main(argv=None) -> int:
                     help="comma-separated DistJoinConfig.exchange_chunks "
                          "values; 0 = the monolithic exchange")
     ap.add_argument("--join-cases", action="store_true")
+    ap.add_argument("--scenario", choices=["plans", "bench_join"],
+                    default="plans",
+                    help="plans: the scenarios above; bench_join: the "
+                         "timed join alone")
+    ap.add_argument("--bench-rows", type=int, default=1 << 20,
+                    help="global probe rows for --scenario bench_join")
+    ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -238,6 +298,15 @@ def main(argv=None) -> int:
     multihost.init(f"localhost:{args.port}", args.nprocs, args.pid,
                    device=args.device, backend=args.backend)
     mesh = make_mesh(device=args.device)
+    if args.scenario == "bench_join":
+        import json
+
+        record = bench_join(mesh, args.bench_rows, args.repeats)
+        with open(args.out, "w") as f:
+            f.write(json.dumps(record) if mesh.rank == 0 else "OK\n")
+        dist.destroy_process_group()
+        print(f"[rank {args.pid}] bench {record}", flush=True)
+        return 0
     record = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
               "device": str(mesh.device), "active": multihost.active(),
               "plans": {}, "joins": {}}

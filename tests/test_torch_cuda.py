@@ -1010,3 +1010,97 @@ def test_make_mesh_without_a_group_raises(cuda_device):
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="multihost.init"):
         make_mesh()
+
+
+# ---------------------------------------------------------------------------
+# the tools: the bench, the fuzz campaign, the roofline and scaling benches
+# ---------------------------------------------------------------------------
+
+
+def _repo():
+    import os
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.cuda
+def test_bench_on_card_over_the_query_documents(cuda_device):
+    """``python -m radixjoin_tpu_torch.bench`` at sf0.01 over the built-in
+    documents: one JSON line, backend cuda, no degradation, every bonus
+    stage reported (device ms for every query)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "RJT_"))}
+    env.update(BENCH_PLANS="builtin", BENCH_SCALE="0.01", BENCH_REPEAT="1")
+    proc = subprocess.run([sys.executable, "-m", "radixjoin_tpu_torch.bench"],
+                          cwd=_repo(), env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = proc.stdout.splitlines()
+    out = json.loads(line)
+    detail = out["detail"]
+    assert out["metric"] == "job5_synthetic_sf0.01_total_ms"
+    assert detail["backend"] == "cuda" and detail["result_rows"] > 0
+    assert not any(v for k, v in detail["degradations"].items()
+                   if k != "queries")
+    assert detail["device_ms"]["queries_measured"] == 5
+    assert detail["batch_wall_ms"] > 0 and "secondary" not in detail
+
+
+@pytest.mark.cuda
+def test_fuzz_campaign_on_card_in_every_mode(cuda_device):
+    """16 seeds in all six modes on the card (the distributed ones on a
+    one-rank NCCL group the campaign opens and leaves), each held to the
+    row oracle; the main path's gather kernels launched."""
+    import torch.distributed as dist
+
+    from radixjoin_tpu_torch.tools import fuzz_campaign
+
+    kernels.reset_launch_counts()
+    stats = fuzz_campaign.run_campaign(16, 0, fuzz_campaign.MODES)
+    assert stats["failures"] == 0
+    assert stats["runs"] == {"auto": 16, "shared": 16, "stepwise": 16,
+                             "spill": 16, "dist": 32, "dist_chunked": 32}
+    assert not dist.is_initialized()
+    counts = kernels.launch_counts()
+    assert counts["window_gather"] > 0
+
+
+@pytest.mark.cuda
+def test_roofline_on_card(cuda_device):
+    from radixjoin_tpu_torch.harness import roofline
+
+    kernels.reset_launch_counts()
+    results = roofline.run(1 << 20, reps=2)
+    assert [m.kernel for m in results] == [
+        "sort_kv[i32]", "murmur64", "join_merge[int32]", "join_count[int32]",
+        "join_expand", "gather_payload[i64]", "fused_join_e2e"]
+    assert all(m.ms > 0 and m.pct_roofline > 0 for m in results)
+    assert all(m.mode in ("graph", "eager") for m in results)
+    # the expansion rides the blocked-window kernel on the owner stream
+    assert kernels.launch_counts()["blocked_window_gather_multi"] > 0
+
+
+@pytest.mark.cuda
+def test_scaling_bench_one_nccl_rank(cuda_device, tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    from radixjoin_tpu_torch.tools import scaling_bench
+
+    out = tmp_path / "scaling.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "radixjoin_tpu_torch.tools.scaling_bench",
+         "--ndev", "1", "--rows", "65536", "--breakdown", "--json", str(out)],
+        cwd=_repo(), capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (res,) = json.loads(out.read_text())
+    bk, bv, _bpl, pk, pv, _ppl = scaling_bench.make_join_data(1, 65536, 0.2)
+    assert res["out_rows"] == int((pv & np.isin(pk, bk[bv])).sum())
+    assert res["backend"] == "nccl" and res["device"] == "cuda:0"
+    assert res["phase_exchange_ms"] > 0 and res["bytes_sent_per_dev"] > 0
