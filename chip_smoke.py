@@ -157,20 +157,48 @@ Phases (any failure exits non-zero; the last line of standard output is
       ``--breakdown``, and the worker's ``bench_join`` on a one-rank NCCL
       group and on two gloo ranks sharing ``cuda:0``: result rows equal to
       numpy; each reports rank 0's kernel launches in its record.
+   Phase 8a's bench writes its feedback store to a fresh file, and phases
+   1-8 run with no store (``RJT_FEEDBACK_PATH`` is unset at the start), so
+   their cold figures are first runs.
+
+9. The cold-start path, on the card:
+   a. three rounds of three fresh processes (this script with
+      ``--cold-child``), each running S2 (``--scale``, lazy) and q6a (the
+      query documents over the bench's cached data) once, cold: over an
+      empty feedback store in a new temporary directory, over the store the
+      round's first process saved, and with the store off (an empty
+      ``RJT_FEEDBACK_PATH``). Each prints its cold ms, fused attempts,
+      overflow retries, rows and the store's tallies; each condition's cold
+      ms are summed up over the rounds (least, median, most). Checked: the
+      rows (count, per-join totals, an order-free digest) equal in every
+      process and to phase 3's (S2) and 6c's (q6a); over a populated store
+      one attempt; the others as many as the in-process cold runs of
+      phases 3 and 6c; no store read or written with the store off;
+   b. S1 (eager pages), S2, S3, F1 and the five documents as fresh plan
+      objects, precompiled (``engine.precompile_fused``) from an 8-wide
+      pool, each one's ms printed; then 6 threads executing their plans 3
+      times each under a budget of the largest query estimate + 64 KiB:
+      no error, evictions, no degradation, rows equal to the serial runs,
+      and the kernels' launch counts equal to the sum of the threads' own;
+   c. the bench over the documents, its warm-up in its pools, over a
+      fresh store: warm-up phase seconds, suite total, device busy and
+      rows, the rows equal to 6c's.
 
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
 "pct_of_bound", "launches_memory_batch", "launches_shared_sql",
 "launches_dist", "launches_bench", "launches_fuzz", "launches_roofline",
-"launches_scaling", "launches_tools"}, ...]}`` (``launches`` counts phase
+"launches_scaling", "launches_tools", "launches_cold_start"}, ...]}``
+(``launches`` counts phase
 3 for the engine's three kernels and phase 4 for the others;
 ``launches_memory_batch`` counts phase 5, ``launches_shared_sql`` phase 6,
 ``launches_dist`` phase 7; ``launches_bench`` counts 8a's warm-up and
 timed passes, ``launches_fuzz`` 8b, ``launches_roofline`` 8c (wrapper
 calls: a CUDA graph's replay launches again uncounted),
 ``launches_scaling`` rank 0 of each 8d cluster, and ``launches_tools``
-is their sum, the whole of phase 8).
+is their sum, the whole of phase 8; ``launches_cold_start`` counts 9b's
+threads).
 
 With ``--kernels``, only the page gather's decode cases of phase 2 run, to
 compare two builds of ``paged_window_gather`` on one card: this
@@ -822,7 +850,7 @@ def run_main_path(torch, np, rt, kernels, args):
 
     ctx = rt.build_context()
     torch.cuda.reset_peak_memory_stats()
-    results, wall_ms = {}, {}
+    results, wall_ms, rounds = {}, {}, {}
     kernels.reset_launch_counts()
     for name, _build, _lazy in shapes:
         for run in ("cold", "warm"):
@@ -833,8 +861,10 @@ def run_main_path(torch, np, rt, kernels, args):
             ms = (time.perf_counter() - t1) * 1e3
             results[(name, run)] = (res, dict(plans[name]._last_join_totals))
             wall_ms[(name, run)] = ms
+            rounds[(name, run)] = plans[name]._last_exec_stats["rounds"]
             _log(f"{name} {run}: {ms:.1f} ms wall (execute incl. page "
-                 f"encode of the result), {res.num_rows} rows")
+                 f"encode of the result), {res.num_rows} rows, "
+                 f"{rounds[(name, run)]} fetch rounds")
     launches = kernels.launch_counts()
     _log(f"main path peak device memory: "
          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
@@ -885,6 +915,8 @@ def run_main_path(torch, np, rt, kernels, args):
         "warm": {name: results[(name, "warm")][0] for name in plans},
         "totals": {name: results[(name, "warm")][1] for name in plans},
         "warm_ms": {name: wall_ms[(name, "warm")] for name in plans},
+        "cold_ms": {name: wall_ms[(name, "cold")] for name in plans},
+        "cold_rounds": {name: rounds[(name, "cold")] for name in plans},
         "root_rows": root_rows,
     }
 
@@ -1333,13 +1365,16 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
 
     # 6c: SQL to result, lazy inputs and eager pages
     small_limit = 1_000_000
-    expected, sql_rows, doc_rows = {}, {}, {}
+    expected, sql_rows, doc_rows, doc_cold = {}, {}, {}, {}
     for eager in ("off", "on"):
         before = kernels.launch_counts()
         with _Env(RJT_EAGER_PAGES=eager):
             for name in docs:
                 parsed, plan = on_card.build_plan(name)
                 res, ms = timed_execute(plan)
+                if eager == "off":
+                    doc_cold[name] = (ms,
+                                      plan._last_exec_stats.get("rounds"))
                 again, warm_ms = timed_execute(plan)
                 actual = res.to_host().to_rows()
                 if res.num_rows == 0:
@@ -1433,7 +1468,7 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     # phase 7d runs two of the documents again over the same data
     sql_state = {"tmp": tmp, "plans_path": plans_path, "source": source,
                  "sql_rows": sql_rows, "expected": expected,
-                 "doc_rows": doc_rows}
+                 "doc_rows": doc_rows, "doc_cold": doc_cold}
 
     # 6d: each knob against its default, inside whole plans
     knobs = [("default", {}),
@@ -1848,6 +1883,20 @@ def _subprocess(label: str, cmd, timeout: float, **env):
     return proc.stdout, proc.stderr
 
 
+#: the bench's knobs, unset for the smoke's bench runs unless they name one
+BENCH_KNOBS = ("BENCH_PLATFORM", "BENCH_REPEAT", "BENCH_BATCH",
+               "BENCH_DEVICE_MS", "BENCH_SECONDARY_SCALE", "BENCH_QUERIES",
+               "BENCH_SQL_DIR", "BENCH_RSS_PROFILE")
+
+
+def _fresh_store_path() -> str:
+    """A feedback-store file in a new temporary directory (not there yet)."""
+    import tempfile
+
+    return os.path.join(tempfile.mkdtemp(prefix="rjt_feedback_"),
+                        "feedback.json")
+
+
 def _bench_join_cluster(label: str, nprocs: int, device, backend, rows: int):
     """The worker's ``bench_join`` on ``nprocs`` rank processes; rank 0's
     record, its result rows held to numpy."""
@@ -1903,16 +1952,15 @@ def run_tools(torch, np, kernels, sql, args):
     from radixjoin_tpu_torch.harness import roofline
     from radixjoin_tpu_torch.tools import fuzz_campaign, scaling_bench
 
-    # 8a: the bench as a user runs it, over the built-in documents
+    # 8a: the bench as a user runs it, over the built-in documents; its
+    # feedback store a fresh file, so that its cold warm-up is a first run
     engine.clear_device_caches()
     t0 = time.perf_counter()
     out, err = _subprocess(
         "8a bench", [sys.executable, "-m", "radixjoin_tpu_torch.bench"], 900,
         BENCH_PLANS="builtin", BENCH_SCALE=str(args.scale),
-        **{k: None for k in ("BENCH_PLATFORM", "BENCH_REPEAT",
-                             "BENCH_BATCH", "BENCH_DEVICE_MS",
-                             "BENCH_SECONDARY_SCALE", "BENCH_QUERIES",
-                             "BENCH_SQL_DIR", "BENCH_RSS_PROFILE")})
+        RJT_FEEDBACK_PATH=_fresh_store_path(),
+        **{k: None for k in BENCH_KNOBS})
     bench_s = time.perf_counter() - t0
     lines = out.splitlines()
     if len(lines) != 1:
@@ -1942,7 +1990,9 @@ def run_tools(torch, np, kernels, sql, args):
     for line in err.splitlines():
         if line.startswith("bench: ") and ("best ms" in line
                                            or "join paths" in line
-                                           or "warmup" in line):
+                                           or "warmup" in line
+                                           or "precompile" in line
+                                           or "feedback store" in line):
             _log(f"8a {line}")
     _log(f"8a bench ({bench_s:.1f} s): {rec['metric']} = {rec['value']} ms, "
          f"vs_baseline {rec['vs_baseline']}; per-query best "
@@ -2033,6 +2083,317 @@ ROOFLINE_SIZE = 1 << 22
 #: 8d: probe rows a rank of scaling_bench (its default) and of bench_join
 SCALING_ROWS = 200_000
 BENCH_JOIN_ROWS = 1 << 20
+#: rounds of 9a's three fresh processes (the spread of a cold figure)
+COLD_ROUNDS = 3
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the cold-start path
+# ---------------------------------------------------------------------------
+
+
+def _digest(np, table) -> list:
+    """An order-free digest of a result: its rows, and per column the valid
+    rows and wrapping sums of the values and of their squares (VARCHAR: of
+    the lengths and of the heap's bytes)."""
+    host = table.to_host()
+    out = [int(host.num_rows)]
+    for c in host.columns:
+        if c.dtype.is_varchar:
+            lengths = np.diff(c.ends, prepend=0)[c.valid]
+            parts = [lengths.astype(np.uint64),
+                     c.heap.astype(np.uint64)]
+        else:
+            vals = np.ascontiguousarray(c.values[c.valid])
+            if vals.dtype == np.float64:
+                vals = vals.view(np.int64)
+            parts = [vals.astype(np.int64).astype(np.uint64)]
+        out.append(int(c.valid.sum()))
+        for u in parts:
+            out += [int(u.sum(dtype=np.uint64)),
+                    int((u * u).sum(dtype=np.uint64))]
+    return out
+
+
+def run_cold_child(args) -> None:
+    """Smoke 9a's child process: the first ``execute`` of S2 (lazy, its
+    tables from ``args.cold_child[1]``) and of q6a (the documents of
+    ``args.cold_child[0]`` over the bench's cached data at ``--scale``) in
+    a fresh process, each timed cold; prints one JSON line with each plan's
+    ms, fetch rounds, rows, per-join totals and digest, and the feedback
+    store's tallies (the store is saved by ``destroy_context``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke needs a card")
+    import numpy as np
+
+    import radixjoin_tpu_torch as rt
+    from radixjoin_tpu_torch import engine
+    from radixjoin_tpu_torch.harness import datagen, job_shapes
+    from radixjoin_tpu_torch.harness import run as harness_run
+    from radixjoin_tpu_torch.ops import kernels
+
+    plans_path, tables_path = args.cold_child
+    torch.zeros(1, device="cuda")
+    kernels.build()
+    ctx = rt.build_context()
+    s2 = job_shapes.s2_plan(datagen._load_tables(tables_path), lazy=True)
+    with open(plans_path) as f:
+        doc = json.load(f)
+    sql_dir = harness_run._sql_directory(doc, plans_path)
+    imdb = datagen.generate_cached(
+        args.scale, args.seed, datagen.load_job_queries(sql_dir, doc["names"]),
+        cache_dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               ".bench_cache"))
+    harness = harness_run.JobHarness(
+        plans_path, harness_run.TableSource(host_tables=imdb), sql_dir)
+    _parsed, q6a = harness.build_plan("q6a")
+    out = {}
+    for name, plan in (("S2", s2), ("q6a", q6a)):
+        res, ms = _timed_execute(torch, rt, plan, ctx)
+        out[name] = {"ms": ms, "rounds": plan._last_exec_stats["rounds"],
+                     "rows": res.num_rows,
+                     "totals": {str(k): v for k, v in
+                                plan._last_join_totals.items()},
+                     "digest": _digest(np, res)}
+    harness.close()
+    engine.destroy_context(ctx)
+    out["store"] = engine.feedback_stats()
+    print(json.dumps(out), flush=True)
+
+
+def run_cold_start(torch, np, rt, kernels, main, sql, args):
+    """Phase 9 (see the module docstring). Returns the launch counts of 9b's
+    threads."""
+    import concurrent.futures as cf
+    import shutil
+    import tempfile
+    import threading
+
+    from radixjoin_tpu_torch import engine
+    from radixjoin_tpu_torch.harness import datagen, job_shapes
+    from radixjoin_tpu_torch.harness import run as harness_run
+
+    # 9a: three rounds of three fresh processes, each running S2 and q6a
+    # cold: an empty store, the store the round's first process saved, the
+    # store switched off
+    work = tempfile.mkdtemp(prefix="rjt_cold_start_")
+    plans_path = job_shapes.write_query_documents(work)
+    tables_path = os.path.join(work, "s2_tables.npz")
+    datagen._save_tables(tables_path, {n: main["tables"][n]
+                                       for n in job_shapes.S2_TABLES})
+    labels = ("empty store", "populated store", "store off")
+    runs = {label: [] for label in labels}
+    for rnd in range(COLD_ROUNDS):
+        store = os.path.join(work, f"store{rnd}", "feedback.json")
+        for label in labels:
+            before = None
+            if os.path.exists(store):
+                with open(store) as f:
+                    before = f.read()
+            t0 = time.perf_counter()
+            out, _err = _subprocess(
+                f"9a round {rnd} {label}",
+                [sys.executable, os.path.abspath(__file__), "--scale",
+                 str(args.scale), "--seed", str(args.seed), "--cold-child",
+                 plans_path, tables_path], 300,
+                RJT_FEEDBACK_PATH="" if label == "store off" else store,
+                **{k: None for k in ("RJT_EAGER_PAGES",
+                                     "RJT_HBM_BUDGET_BYTES", "RJT_EXEC_MODE",
+                                     "RJT_CARD_FEEDBACK")})
+            rec = json.loads(out.splitlines()[-1])
+            runs[label].append(rec)
+            st = rec["store"]
+            _log(f"9a round {rnd} {label} ({time.perf_counter() - t0:.1f} s "
+                 f"for the process): store {st['path']}, loaded "
+                 f"{st['loaded']}, saves {st['saves']}, load errors "
+                 f"{st['load_errors']}, save errors {st['save_errors']}")
+            for name in ("S2", "q6a"):
+                r = rec[name]
+                _log(f"9a round {rnd} {label} {name}: cold {r['ms']:.1f} ms, "
+                     f"fused attempts {r['rounds'] - 1}, overflow retries "
+                     f"{r['rounds'] - 2}, {r['rounds']} fetch rounds, "
+                     f"{r['rows']} rows")
+            if st["load_errors"] or st["save_errors"]:
+                _fail(f"9a {label}: the store could not be read or written: "
+                      f"{st}")
+            if label == "empty store" and (st["loaded"] or st["saves"] != 1
+                                           or not os.path.exists(store)):
+                _fail(f"9a {label}: the store was not saved: {st}")
+            if label == "populated store" and st["loaded"] != 2:
+                _fail(f"9a {label}: {st['loaded']} plans loaded, not 2")
+            if label == "store off":
+                with open(store) as f:
+                    if (st["path"] is not None or st["loaded"]
+                            or f.read() != before):
+                        _fail(f"9a {label}: the switched-off store was "
+                              f"used: {st}")
+    in_process = {"S2": main["cold_rounds"]["S2"],
+                  "q6a": sql["doc_cold"]["q6a"][1]}
+    in_process_ms = {"S2": main["cold_ms"]["S2"],
+                     "q6a": sql["doc_cold"]["q6a"][0]}
+    want_rows = {"S2": main["root_rows"]["S2"], "q6a": sql["doc_rows"]["q6a"]}
+    for name in ("S2", "q6a"):
+        recs = [r[name] for label in labels for r in runs[label]]
+        same = {(r["rows"], json.dumps(r["totals"], sort_keys=True),
+                 json.dumps(r["digest"])) for r in recs}
+        if len(same) != 1 or recs[0]["rows"] != want_rows[name]:
+            _fail(f"9a {name}: rows differ between the runs or from the "
+                  f"in-process run ({want_rows[name]}): "
+                  f"{[(r['rows'], r['digest'][:3]) for r in recs]}")
+        if name == "S2" and recs[0]["totals"] != {
+                str(k): v for k, v in main["totals"]["S2"].items()}:
+            _fail(f"9a S2: per-join totals {recs[0]['totals']} differ from "
+                  f"phase 3's {main['totals']['S2']}")
+        for label in labels:
+            want = 2 if label == "populated store" else in_process[name]
+            got = [r[name]["rounds"] for r in runs[label]]
+            if any(g != want for g in got):
+                _fail(f"9a {name} {label}: fetch rounds {got}, expected "
+                      f"{want}")
+        spread = {}
+        for label in labels:
+            ms = sorted(r[name]["ms"] for r in runs[label])
+            spread[label] = ms
+            _log(f"9a {name} {label}: cold ms over {COLD_ROUNDS} processes "
+                 f"{ms[0]:.1f} / {ms[len(ms) // 2]:.1f} / {ms[-1]:.1f} "
+                 f"(least / median / most)")
+        cold = spread["empty store"] + spread["store off"]
+        gap = min(cold) - spread["populated store"][-1]
+        _log(f"9a {name}: the slowest populated-store process "
+             + (f"{gap:.1f} ms below the fastest without a store"
+                if gap > 0 else
+                f"not below the fastest without a store ({-gap:.1f} ms "
+                f"above it)")
+             + f" (in process: {in_process_ms[name]:.1f} ms, "
+             f"{in_process[name]} rounds); rows equal in all "
+             f"{len(recs)} processes and to the in-process run")
+
+    # 9b: fresh plan objects precompiled from an 8-wide pool, then 6
+    # threads executing them 3 times each under a budget that admits one
+    ctx = main["ctx"]
+    ledger = engine.device_ledger(ctx.device)
+    engine.clear_device_caches()
+    t0 = time.perf_counter()
+    plans, serial = {}, {}
+    for name, build, lazy in main["shapes"]:
+        plans[name] = build(main["tables"], lazy=lazy)
+        serial[name] = main["warm"][name]
+    harness = harness_run.JobHarness(plans_path, sql["source"])
+    for name in job_shapes.QUERY_DOCUMENTS:
+        plans[name] = harness.build_plan(name)[1]
+        serial[name] = rt.execute(harness.build_plan(name)[1], ctx)
+    budget = max(engine._estimate_query_bytes(p)
+                 for p in plans.values()) + (64 << 10)
+    _log(f"9b: {len(plans)} fresh plans built and the documents run serially "
+         f"in {time.perf_counter() - t0:.1f} s; budget {budget} bytes (the "
+         f"largest query estimate + 64 KiB)")
+    engine.clear_device_caches()
+    stats0 = dict(ledger.stats)
+    tallies0 = engine.engine_stats()
+    pre_ms = {}
+
+    def precompile(name):
+        t1 = time.perf_counter()
+        ok = engine.precompile_fused(plans[name], ctx)
+        pre_ms[name] = (time.perf_counter() - t1) * 1e3
+        return ok
+
+    n_threads = 6
+    names = list(plans)
+    mine = {t: names[t::n_threads] for t in range(n_threads)}
+    errors, got, launched, thread_ms = [], {}, {}, {}
+
+    def worker(t):
+        kernels.reset_thread_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            for _ in range(3):
+                for name in mine[t]:
+                    got[name] = rt.execute(plans[name], ctx)
+        except Exception as e:  # noqa: BLE001 - fails the phase below
+            errors.append((mine[t], f"{type(e).__name__}: {e}"))
+        thread_ms[t] = (time.perf_counter() - t1) * 1e3
+        launched[t] = kernels.thread_launch_counts()
+
+    with _Env(RJT_HBM_BUDGET_BYTES=budget):
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(8) as ex:
+            done = dict(zip(names, ex.map(precompile, names)))
+        pre_s = time.perf_counter() - t0
+        if not all(done.values()):
+            _fail(f"9b: precompile_fused declined a plan: {done}")
+        _log(f"9b precompile from 8 threads: {pre_s * 1e3:.1f} ms in all; "
+             + ", ".join(f"{n} {pre_ms[n]:.1f} ms" for n in names))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                _fail("9b: a thread did not finish (admission deadlock?)")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    total = kernels.launch_counts()
+    if errors:
+        _fail(f"9b: threads raised: {errors}")
+    summed = {k: sum(c[k] for c in launched.values()) for k in total}
+    evictions = ledger.stats["evictions"] - stats0["evictions"]
+    waits = ledger.stats["waits"] - stats0["waits"]
+    tallies = engine.engine_stats()
+    rose = {k: tallies[k] - tallies0[k] for k in engine.ENGINE_STATS
+            if tallies[k] != tallies0[k]}
+    _log(f"9b {n_threads} threads x 3 runs of their plans "
+         f"({json.dumps(mine)}): {wall_s:.2f} s wall, per thread "
+         + ", ".join(f"{thread_ms[t]:.0f}" for t in range(n_threads))
+         + f" ms; ledger evictions {evictions}, admission waits {waits}; "
+         f"kernel launches {json.dumps(total)}, the threads' sum "
+         f"{json.dumps(summed)}")
+    if evictions <= 0:
+        _fail("9b: no eviction under the one-query budget")
+    if rose:
+        _fail(f"9b: a degradation tally rose: {rose}")
+    if total != summed:
+        _fail(f"9b: launch counts {total} differ from the threads' sum "
+              f"{summed}")
+    if not all(total[k] > 0 for k in ("window_gather",
+                                      "blocked_window_gather_multi")):
+        _fail(f"9b: the join kernels were not launched: {total}")
+    for name in names:
+        if not _same_rows(np, got[name], serial[name]):
+            _fail(f"9b {name}: rows differ from the serial run")
+    _log(f"9b: every plan's rows equal to its serial run; no error")
+    harness.close()
+    engine.clear_device_caches()
+    shutil.rmtree(work, ignore_errors=True)
+
+    # 9c: the bench, its warm-up in its pools, over a fresh store
+    env = {k: None for k in BENCH_KNOBS}
+    env.update(BENCH_PLANS="builtin", BENCH_SCALE=str(args.scale),
+               BENCH_BATCH="off", BENCH_SECONDARY_SCALE="",
+               RJT_FEEDBACK_PATH=_fresh_store_path())
+    t0 = time.perf_counter()
+    out, _err = _subprocess("9c bench", [sys.executable, "-m",
+                                         "radixjoin_tpu_torch.bench"],
+                            600, **env)
+    d = json.loads(out.splitlines()[-1])
+    detail = d["detail"]
+    _log(f"9c bench ({time.perf_counter() - t0:.1f} s): warm-up phases s "
+         f"{json.dumps(detail['warmup_phase_s'])}; {d['metric']} = "
+         f"{d['value']} ms; device busy {detail['device_ms']['total_ms']} ms, "
+         f"idle share {json.dumps(detail['device_ms']['idle_share'])}; "
+         f"{detail['result_rows']} rows; store "
+         f"{json.dumps(detail['feedback'])}")
+    if any(v for k, v in detail["degradations"].items() if k != "queries"):
+        _fail(f"9c: a degradation tally rose: {detail['degradations']}")
+    if detail["result_rows"] != sum(sql["doc_rows"].values()):
+        _fail(f"9c: {detail['result_rows']} result rows, phase 6c "
+              f"{sum(sql['doc_rows'].values())}")
+    return total
 
 
 def profile_warm(torch, rt, plan, ctx, name: str) -> None:
@@ -2080,8 +2441,16 @@ def main() -> None:
     ap.add_argument("--kernels", default=None,
                     help="another checkout's ops/kernels.py: compare its "
                          "paged_window_gather with this one's, and stop")
+    ap.add_argument("--cold-child", nargs=2, default=None,
+                    help=argparse.SUPPRESS)  # phase 9a's child process
     args = ap.parse_args()
+    if args.cold_child:
+        run_cold_child(args)
+        return
     t_start = time.perf_counter()
+    # phases 1-8 run without a feedback store, so that their cold figures
+    # are first runs; phase 9 names its own
+    os.environ.pop("RJT_FEEDBACK_PATH", None)
 
     import torch
 
@@ -2144,6 +2513,10 @@ def main() -> None:
     # phase 8: the bench, the fuzz campaign, roofline and scaling, counted
     tools_launches = run_tools(torch, np, kernels, sql_state, args)
     phase_done("phase 8 (bench, fuzz campaign, roofline, scaling)")
+    # phase 9: the cold-start path (feedback store, precompile, threads)
+    cold_launches = run_cold_start(torch, np, rt, kernels, main_path,
+                                   sql_state, args)
+    phase_done("phase 9 (cold start: feedback store, precompile, threads)")
     _log(f"card: {smi}")
 
     meta = {
@@ -2182,6 +2555,7 @@ def main() -> None:
             "launches_roofline": tools_launches["roofline"][name],
             "launches_scaling": tools_launches["scaling"][name],
             "launches_tools": tools_launches["tools"][name],
+            "launches_cold_start": cold_launches[name],
         })
         _log(f"{name}: the times below are at {rec['shape']}; bound from "
              f"{rec['bound_bytes']} bytes at {HBM_BYTES_PER_S / 1e9:.0f} "

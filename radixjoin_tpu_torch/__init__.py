@@ -19,7 +19,12 @@ Top-level API (mirrors reference include/plan.h:337-344):
 
 ``engine.engine_stats()`` tallies every degradation (out-of-memory
 retries, spills), ``engine.device_ledger(device)`` is the memory ledger,
-``engine.clear_device_caches()`` drops the idle cached uploads.
+``engine.clear_device_caches()`` drops the idle cached uploads,
+``engine.precompile_fused(plan, ctx)`` prepares a plan's first execute
+without running it. Any number of threads may call ``execute`` on
+distinct plan objects at once under one budget. ``RJT_FEEDBACK_PATH``
+names a file that keeps the learned cardinality feedback across
+processes.
 
 The package imports torch and numpy only; it never imports jax or the
 radixjoin_tpu package (``convert.from_reference`` reads a radixjoin_tpu

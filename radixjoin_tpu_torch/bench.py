@@ -8,9 +8,20 @@ timing covers ``execute()`` only (plan construction and base-table
 filtering excluded); the metric is the suite total, best of
 ``BENCH_REPEAT`` passes a query. The suite runs on the literal-aware
 synthetic IMDB (``harness/datagen.py``, seed 0, cached in the gitignored
-``.bench_cache/``) at ``BENCH_SCALE``. Every query is warmed by two
-executes first: the first learns the cardinality feedback, the second runs
-in the steady state.
+``.bench_cache/``) at ``BENCH_SCALE``. Every query is warmed first, in
+the JAX bench's four phases, each run in a pool of ``POOL_THREADS``
+threads and logged with its seconds and slowest plans
+(``detail.warmup_phase_s``): ``precompile`` (``engine.precompile_fused``:
+structures built and scan columns uploaded), ``warmup-exec1`` (one
+execute each, which learns the cardinality feedback),
+``precompile-feedback`` (the structures of the learned state) and
+``warmup-exec2`` (the steady state). An error in any warm-up thread fails
+the bench. The timed passes are serial.
+
+The learned feedback persists across processes in ``RJT_FEEDBACK_PATH``,
+by default ``.bench_cache/rjt_feedback.json``; the bench logs the file
+and how many of its plans it found there (``detail.feedback``), so a cold
+figure says whether it came from a first run.
 
 Query files: ``BENCH_PLANS`` names them and has no default, since the JOB
 suite's ``plans.json`` and ``.sql`` files are not in the repository: a path
@@ -60,6 +71,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE_TOTAL_MS = 914_223.0  # BASELINE.md: JOB 113-query total, 7995WX
 BASELINE_QUERIES = 113
 DEFAULT_SCALE = "0.1"
+#: threads of each warm-up pool (the JAX bench's precompile pool width); the
+#: device ledger admits the executes that fit its budget
+POOL_THREADS = 24
 
 
 def log(msg):
@@ -143,6 +157,8 @@ def _emit(total_ms, scale, n_queries, partial=False):
         detail["device_ms"] = _partial["device_ms"]
     if "launches" in _partial:
         detail["launches"] = _partial["launches"]
+    if "feedback" in _partial:
+        detail["feedback"] = _partial["feedback"]
     # degradation tallies: the headline is the PRIMARY-pass snapshot (taken
     # right after the timed passes); the later stages tally into the
     # process-wide stats, reported apart when they differ
@@ -219,6 +235,28 @@ def _device():
     return None
 
 
+def _run_pool(fn, names) -> dict:
+    """``fn(name)`` for every name, on ``POOL_THREADS`` threads: the
+    seconds each took. The first error of any thread is raised once all
+    have ended."""
+    import concurrent.futures as cf
+
+    times = {}
+
+    def timed(name):
+        t0 = time.perf_counter()
+        try:
+            fn(name)
+        finally:
+            times[name] = time.perf_counter() - t0
+
+    with cf.ThreadPoolExecutor(POOL_THREADS) as ex:
+        futures = [ex.submit(timed, name) for name in names]
+    for fut in futures:
+        fut.result()
+    return times
+
+
 def _query_files(tmp_dirs):
     """``(plans.json, sql dir)`` of the suite: BENCH_PLANS / BENCH_SQL_DIR,
     or the built-in documents written to a temporary directory under
@@ -271,8 +309,9 @@ def _device_ms_stage(names, plans, context, execute) -> dict:
 
 def _secondary_pass(scale: float, names, sql_dir, plans_path,
                     device) -> dict:
-    """One warm serial pass at a secondary scale: two warm executes a
-    query, then one timed pass; the summary for ``detail.secondary``."""
+    """One warm serial pass at a secondary scale: each query precompiled
+    and executed twice in the warm-up pool, then one timed pass; the
+    summary for ``detail.secondary``."""
     from radixjoin_tpu_torch import engine as _eng
     from radixjoin_tpu_torch.harness import datagen
     from radixjoin_tpu_torch.harness.run import JobHarness, TableSource
@@ -289,10 +328,13 @@ def _secondary_pass(scale: float, names, sql_dir, plans_path,
         plans = {n: harness.build_plan(n)[1] for n in names}
         log(f"bench: secondary sf{scale} setup "
             f"{time.perf_counter() - t0:.1f}s")
+        def warm(name):
+            _eng.precompile_fused(plans[name], harness.context)
+            _eng.execute(plans[name], harness.context)
+            _eng.execute(plans[name], harness.context)
+
         t0 = time.perf_counter()
-        for _ in range(2):
-            for name in names:
-                _eng.execute(plans[name], harness.context)
+        _run_pool(warm, names)
         warm_s = time.perf_counter() - t0
         per = {}
         for name in names:
@@ -329,6 +371,11 @@ def main():
     scale = float(os.environ.get("BENCH_SCALE", DEFAULT_SCALE))
     repeat = int(os.environ.get("BENCH_REPEAT", "2"))
     device = _device()
+    # the cross-process feedback store, beside the cached data (the JAX
+    # bench keeps it in its compile cache)
+    os.environ.setdefault("RJT_FEEDBACK_PATH",
+                          os.path.join(REPO, ".bench_cache",
+                                       "rjt_feedback.json"))
     tmp_dirs = []
     plans_path, sql_dir = _query_files(tmp_dirs)
 
@@ -374,34 +421,50 @@ def main():
         plans[name] = harness.build_plan(name)[1]
     log(f"bench: {len(names)} plans built in {time.perf_counter()-t0:.1f}s")
 
-    # warm-up: exec1 learns the cardinality feedback, exec2 runs the steady
-    # state; each phase logs its time and slowest plans
+    # staged warm-up (the JAX bench's): precompile builds each structure
+    # and uploads its columns, exec1 learns the cardinality feedback,
+    # precompile-feedback builds the structures of the learned state, exec2
+    # runs the steady state; each phase logs its time and slowest plans
     kernels.reset_launch_counts()
     phase_times = {}
+    loaded_before = _eng.feedback_stats()["loaded"]
 
     def _run_phase(tag, fn):
         _partial["stage"] = tag
         t_p = time.perf_counter()
-        times = {}
-        for name in names:
-            t0 = time.perf_counter()
-            try:
-                fn(name)
-            except Exception as e:  # noqa: BLE001 - the pass reports
-                log(f"bench: {tag}[{name}] failed: "
-                    f"{type(e).__name__}: {str(e)[:150]}")
-            times[name] = time.perf_counter() - t0
+        try:
+            times = _run_pool(fn, names)
+        except Exception as e:
+            log(f"bench: {tag} ({POOL_THREADS} threads) failed: "
+                f"{type(e).__name__}: {str(e)[:300]}")
+            raise
         dt = time.perf_counter() - t_p
-        phase_times[tag] = round(dt, 1)
+        phase_times[tag] = round(dt, 3)
         slow = sorted(times.items(), key=lambda kv: -kv[1])[:5]
-        log(f"bench: {tag} took {dt:.1f}s; rss={_rss_gb():.1f}GB; "
-            f"slowest: " + ", ".join(f"{n}={s:.1f}s" for n, s in slow))
+        log(f"bench: {tag} ({POOL_THREADS} threads) took {dt:.1f}s; "
+            f"rss={_rss_gb():.1f}GB; slowest: "
+            + ", ".join(f"{n}={s:.1f}s" for n, s in slow))
         _mem_snapshot(tag)
 
-    def warm1(name):
-        _partial["result_rows"] += execute(plans[name], context).num_rows
+    rows_by_name = {}
 
+    def precompile(name):
+        _eng.precompile_fused(plans[name], context)
+
+    def warm1(name):
+        rows_by_name[name] = execute(plans[name], context).num_rows
+
+    _run_phase("precompile", precompile)
     _run_phase("warmup-exec1", warm1)
+    _partial["result_rows"] = sum(rows_by_name.values())
+    store = _eng.feedback_stats()
+    _partial["feedback"] = {"path": store["path"],
+                            "loaded": store["loaded"] - loaded_before,
+                            "plans": len(names)}
+    log(f"bench: feedback store {store['path']}: "
+        f"{_partial['feedback']['loaded']} of {len(names)} plans loaded "
+        f"from it")
+    _run_phase("precompile-feedback", precompile)
     _run_phase("warmup-exec2", lambda name: execute(plans[name], context))
     _partial["phase_times"] = phase_times
 

@@ -45,9 +45,12 @@ on its own CUDA stream before any result is consumed.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import gc
+import hashlib
+import json
 import os
 import threading
 import time
@@ -118,7 +121,159 @@ def build_context(device=None) -> Context:
 
 
 def destroy_context(context: Optional[Context]) -> None:
+    _feedback_store().save()
     return None
+
+
+# ---------------------------------------------------------------------------
+# Cross-process cardinality feedback
+# ---------------------------------------------------------------------------
+
+
+class _FeedbackStore:
+    """Cross-process persistence of cardinality feedback (the JAX package's
+    store, with its key and its JSON entry, so one file serves both).
+
+    Learned per-join exact buckets (the state the fused executor starts a
+    repeat execution from) keyed by a content hash of the plan *and its
+    input row counts*: a fresh process running a known plan makes no
+    default-bucket pass and no overflow retry. One JSON file, written
+    atomically (a temporary file, then ``os.replace``) after exact runs are
+    recorded, at :func:`destroy_context` and at exit. A stale entry is
+    harmless: an undersized learned pad takes the ordinary overflow retry.
+
+    ``RJT_FEEDBACK_PATH`` names the file, read once on the store's first
+    use; unset or empty, the store is off (the JAX package's default
+    location is its compile-cache directory, which this package has no
+    counterpart of). A file that cannot be read or parsed is ignored, one
+    that cannot be written is skipped; both are tallied in :attr:`stats`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._data: Optional[dict] = None  # {key: [buckets, root_rows]}
+        self._path: Optional[str] = None  # set with _data, on first use
+        self._dirty = False
+        self.stats = {"loaded": 0, "saves": 0, "load_errors": 0,
+                      "save_errors": 0}
+
+    def _load_locked(self) -> Optional[dict]:
+        """The store's entries, read on first use; None when it is off."""
+        if self._data is None:
+            self._path = os.environ.get("RJT_FEEDBACK_PATH") or None
+            self._data = {}
+            if self._path and os.path.exists(self._path):
+                try:
+                    with open(self._path) as f:
+                        data = json.load(f)
+                    if not isinstance(data, dict):
+                        raise ValueError("not a JSON object")
+                    self._data = data
+                except (OSError, ValueError):
+                    self.stats["load_errors"] += 1
+        return self._data if self._path else None
+
+    @staticmethod
+    def _key(plan: Plan) -> str:
+        key = getattr(plan, "_feedback_key", None)
+        if key is None:
+            desc = []
+            for node in plan.nodes:
+                attrs = tuple((c, int(dt)) for c, dt in node.output_attrs)
+                if isinstance(node.data, ScanNode):
+                    desc.append(("s", node.data.base_table_id, attrs))
+                else:
+                    j = node.data
+                    desc.append((
+                        "j", j.build_left, j.left, j.right,
+                        j.left_attr, j.right_attr, attrs,
+                    ))
+            rows = tuple(t.num_rows for t in plan.inputs)
+            blob = repr((desc, rows, plan.root)).encode()
+            key = hashlib.sha1(blob).hexdigest()
+            plan._feedback_key = key
+        return key
+
+    def load_into(self, plan: Plan) -> bool:
+        """Set ``plan._learned_buckets`` from the store; True on a hit. The
+        entry's root row count is not read: the port fetches exactly the
+        root's live rows."""
+        with self._lock:
+            data = self._load_locked()
+            hit = data.get(self._key(plan)) if data is not None else None
+            if not hit:
+                return False
+            try:
+                buckets, _root_rows = hit
+                learned = {int(i): (int(pad), bool(comp))
+                           for i, (pad, comp) in buckets.items()}
+            except (TypeError, ValueError, AttributeError):
+                self.stats["load_errors"] += 1
+                return False
+            self.stats["loaded"] += 1
+        plan._learned_buckets = learned
+        return True
+
+    def put(self, plan: Plan, root_rows: int) -> None:
+        """Record ``plan._learned_buckets`` and the root's exact row count
+        of the run that learned them."""
+        buckets = {
+            str(i): [int(pad), bool(comp)]
+            for i, (pad, comp) in plan._learned_buckets.items()
+        }
+        entry = [buckets, int(root_rows)]
+        key = self._key(plan)
+        with self._lock:
+            data = self._load_locked()
+            if data is not None and data.get(key) != entry:
+                data[key] = entry
+                self._dirty = True
+
+    def save(self) -> None:
+        with self._lock:
+            path = self._path
+            if not (path and self._dirty):
+                return
+            tmp = f"{path}.tmp.{os.getpid()}"
+            try:
+                directory = os.path.dirname(path)
+                if directory:
+                    os.makedirs(directory, exist_ok=True)
+                with open(tmp, "w") as f:
+                    json.dump(self._data, f)
+                os.replace(tmp, path)
+                self._dirty = False
+                self.stats["saves"] += 1
+            except OSError:
+                self.stats["save_errors"] += 1
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+
+
+_FEEDBACK: Optional[_FeedbackStore] = None
+_FEEDBACK_LOCK = threading.Lock()
+
+
+def _feedback_store() -> _FeedbackStore:
+    global _FEEDBACK
+    if _FEEDBACK is None:
+        with _FEEDBACK_LOCK:
+            if _FEEDBACK is None:
+                store = _FeedbackStore()
+                atexit.register(store.save)
+                _FEEDBACK = store
+    return _FEEDBACK
+
+
+def feedback_stats() -> dict:
+    """The store's file (None when it is off) and its tallies: plans
+    ``loaded`` from it, ``saves``, and files that could not be read
+    (``load_errors``) or written (``save_errors``)."""
+    store = _feedback_store()
+    with store._lock:
+        store._load_locked()
+        return {"path": store._path, **store.stats}
 
 
 # ---------------------------------------------------------------------------
@@ -673,24 +828,30 @@ ENGINE_STATS: dict = {
 ENGINE_STATS_QUERIES: dict = {k: [] for k in ENGINE_STATS}
 
 
+_ENGINE_STATS_LOCK = threading.Lock()
+
+
 def engine_stats() -> dict:
-    out = dict(ENGINE_STATS)
-    out["queries"] = {k: list(v) for k, v in ENGINE_STATS_QUERIES.items()
-                      if v}
+    with _ENGINE_STATS_LOCK:
+        out = dict(ENGINE_STATS)
+        out["queries"] = {k: list(v) for k, v in ENGINE_STATS_QUERIES.items()
+                          if v}
     return out
 
 
 def reset_engine_stats() -> None:
-    for k in ENGINE_STATS:
-        ENGINE_STATS[k] = 0
-        ENGINE_STATS_QUERIES[k].clear()
+    with _ENGINE_STATS_LOCK:
+        for k in ENGINE_STATS:
+            ENGINE_STATS[k] = 0
+            ENGINE_STATS_QUERIES[k].clear()
 
 
 def _tally(kind: str, plan) -> None:
-    ENGINE_STATS[kind] += 1
     name = getattr(plan, "_name", None)
-    if name is not None:
-        ENGINE_STATS_QUERIES[kind].append(str(name))
+    with _ENGINE_STATS_LOCK:
+        ENGINE_STATS[kind] += 1
+        if name is not None:
+            ENGINE_STATS_QUERIES[kind].append(str(name))
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +913,84 @@ def _execute_fused(plan: Plan, context: Context) -> Optional[HostTable]:
         return stop.value
 
 
+def _feedback_state(plan: Plan):
+    """``(feedback_on, learned, buckets)``: the cardinality feedback a fused
+    run of ``plan`` starts from. A plan object that has learned nothing yet
+    is looked up in the cross-process store first. General joins whose
+    learned bucket was compacted seed ``buckets`` with it."""
+    from .plan import executor as _exec
+
+    feedback_on = _exec.card_feedback_on()
+    if feedback_on and not hasattr(plan, "_learned_buckets"):
+        _feedback_store().load_into(plan)
+    learned = getattr(plan, "_learned_buckets", None) if feedback_on else None
+    buckets: dict = {}
+    if learned:
+        for i, (pad, was_compacted) in learned.items():
+            if was_compacted:
+                buckets.setdefault(i, pad)
+    return feedback_on, learned, buckets
+
+
+def _struct_state_key(device, buckets: dict, learned, no_compact) -> tuple:
+    """The key a fused structure is cached under on its plan
+    (``plan._fused_struct_cache``): the device, the strategy knobs (a
+    structure built under other knob values must not be served), the
+    buckets, the learned feedback and the joins not compacted."""
+    from .plan import executor as _exec
+
+    return (
+        device,
+        _exec.strategy_knobs(),
+        tuple(sorted(buckets.items())),
+        tuple(sorted(learned.items())) if learned else None,
+        frozenset(no_compact),
+    )
+
+
+def precompile_fused(plan: Plan, context: Optional[Context] = None) -> bool:
+    """Prepare the plan's first fused execution without running it.
+
+    Registers the plan, loads its cardinality feedback (from the
+    cross-process store when the plan object has none), resolves and
+    uploads its scan columns and indexes inside a ledger reservation of
+    their bytes, and caches the structure under the key that
+    :func:`execute`'s first attempt looks up, so that execute reuses it
+    (after ``revalidate()``) and builds none. On a CUDA context it ends by
+    loading the kernel libraries (``ops.kernels.build``), so the first
+    execute pays neither ``nvcc`` nor ``dlopen``. Safe to call from many
+    threads at once.
+
+    Returns False, and caches nothing, for a plan the fused executor does
+    not take: a VARCHAR key the structure declines, or scan inputs over
+    the device budget (``execute`` spills those). Raises where ``execute``
+    would (a malformed plan, no card for the default context)."""
+    from .ops import kernels
+    from .plan import fused as fz
+
+    if context is None:
+        context = build_context()
+    device = context.device
+    plan.validate()
+    budget = _hbm_budget(context)
+    scan_bytes = _estimate_scan_bytes(plan)
+    if scan_bytes > budget:
+        return False
+    register_device_cache_plan(plan)
+    unique_joins = _detect_unique_joins(plan)
+    _feedback_on, learned, buckets = _feedback_state(plan)
+    with device_ledger(device).reserve(scan_bytes, budget):
+        structure = fz.FusedPlan(plan, buckets, unique_joins, device,
+                                 learned, frozenset())
+        if structure.has_varchar_key:
+            return False
+        plan._fused_struct_cache = (
+            _struct_state_key(device, buckets, learned, ()), structure)
+    if device.type == "cuda":
+        kernels.build()
+    return True
+
+
 def _fused_attempts(plan: Plan, context: Context):
     """Generator form of the fused executor: yields lists of device
     tensors whose fetched numpy values are sent back in, and returns the
@@ -766,32 +1005,19 @@ def _fused_attempts(plan: Plan, context: Context):
     their bucket; a probe-shaped join compacted to a stale learned pad
     re-runs uncompacted. On success the exact buckets are kept on the plan
     object as cardinality feedback for its next execution, and the root's
-    live rows (``[:root_total]``, exact) are asked for and decoded."""
-    from .plan import executor as _exec
+    live rows (``[:root_total]``, exact) are asked for and decoded. The
+    exact buckets go to the cross-process store too (:class:`_FeedbackStore`),
+    and a plan object with none is looked up there first."""
     from .plan import fused as fz
 
     register_device_cache_plan(plan)
     device = context.device
-    buckets: dict = {}
     root_node = plan.nodes[plan.root]
     unique_joins = _detect_unique_joins(plan)
-    feedback_on = _exec.card_feedback_on()
-    learned = getattr(plan, "_learned_buckets", None) if feedback_on else None
-    # a structure built under other knob values must not be served
-    knobs = _exec.strategy_knobs()
-    if learned:
-        for i, (pad, was_compacted) in learned.items():
-            if was_compacted:
-                buckets.setdefault(i, pad)
+    feedback_on, learned, buckets = _feedback_state(plan)
     no_compact: set = set()
     for _attempt in range(len(plan.nodes) + 2):
-        state_key = (
-            device,
-            knobs,
-            tuple(sorted(buckets.items())),
-            tuple(sorted(learned.items())) if learned else None,
-            frozenset(no_compact),
-        )
+        state_key = _struct_state_key(device, buckets, learned, no_compact)
         cached = getattr(plan, "_fused_struct_cache", None)
         if (
             cached is not None
@@ -863,6 +1089,7 @@ def _fused_attempts(plan: Plan, context: Context):
                 )
                 for ji, node_id in enumerate(join_order)
             }
+            _feedback_store().put(plan, root_total)
 
         # bounded root fetch: only the live rows cross to the host
         k = len(out_values_dev)

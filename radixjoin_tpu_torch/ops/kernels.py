@@ -28,7 +28,8 @@ keyed by a hash of the source and the shared header) and called through
 Every wrapper checks its arguments the same way on every device. It then
 takes the plain PyTorch version for tensors on the CPU, and only there;
 for CUDA tensors it launches its kernel or raises. Each wrapper counts its
-kernel launches in its ``launches`` attribute (see :func:`launch_counts`).
+kernel launches in its ``launches`` attribute (see :func:`launch_counts`),
+under a lock, and for the launching thread (:func:`thread_launch_counts`).
 """
 
 from __future__ import annotations
@@ -167,13 +168,46 @@ def build():
         return lib
 
 
+#: launches are counted under one lock (threads launch concurrently, and
+#: ``fn.launches += 1`` is a read, an add and a write), for the process and
+#: for the launching thread
+_count_lock = threading.Lock()
+_thread_counts = threading.local()
+
+
+def _count_launch(fn) -> None:
+    """Count one launch of ``fn``'s kernel: called by the wrappers where
+    they launch, and nowhere else."""
+    with _count_lock:
+        fn.launches += 1
+    counts = getattr(_thread_counts, "counts", None)
+    if counts is None:
+        counts = _thread_counts.counts = {}
+    counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
+
+
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """Launches per wrapper in this process since the last
+    :func:`reset_launch_counts`."""
+    with _count_lock:
+        return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    with _count_lock:
+        for fn in _WRAPPERS:
+            fn.launches = 0
+
+
+def thread_launch_counts() -> Dict[str, int]:
+    """Launches per wrapper made by the calling thread since its last
+    :func:`reset_thread_launch_counts` (or its start)."""
+    counts = getattr(_thread_counts, "counts", None) or {}
+    return {fn.__name__: counts.get(fn.__name__, 0) for fn in _WRAPPERS}
+
+
+def reset_thread_launch_counts() -> None:
+    _thread_counts.counts = {}
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +353,7 @@ def window_gather(tables, idx: torch.Tensor) -> List[torch.Tensor]:
         )
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-        window_gather.launches += 1
+        _count_launch(window_gather)
     return outs
 
 
@@ -409,7 +443,7 @@ def blocked_window_gather_multi(tables, idx: torch.Tensor,
         )
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-        blocked_window_gather_multi.launches += 1
+        _count_launch(blocked_window_gather_multi)
         ok_ptr = None
     return outs, ok
 
@@ -461,7 +495,7 @@ def paged_window_gather(body: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    paged_window_gather.launches += 1
+    _count_launch(paged_window_gather)
     return out
 
 
@@ -535,7 +569,7 @@ def _launch_resident(fn, mode: str, use_smem: bool, table: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error "
                            f"{rc}")
-    fn.launches += 1
+    _count_launch(fn)
     return out
 
 

@@ -323,7 +323,9 @@ def _cached_upload(eng, owner, key, device, make):
     ledger = eng.device_ledger(device)
     memo = _memo_of(owner)
     value = memo.get(key)  # .get: a concurrent eviction may pop the key
-    if value is not None and ledger.touch(owner):
+    # the second read: between the first and the touch another thread may
+    # have evicted the entry and uploaded it again under a new value
+    if value is not None and ledger.touch(owner) and memo.get(key) is value:
         return value
     release = eng.column_cache_release(device)
     with _owner_lock(owner):
@@ -493,20 +495,32 @@ SYNC_STATS: Dict[str, int] = {
 }
 
 
+#: both tallies are updated from every thread that executes a plan
+_STATS_LOCK = threading.Lock()
+
+
 def _count_path(name: str) -> None:
-    PATH_STATS[name] = PATH_STATS.get(name, 0) + 1
+    with _STATS_LOCK:
+        PATH_STATS[name] = PATH_STATS.get(name, 0) + 1
+
+
+def _count_sync(name: str, n: int = 1) -> None:
+    with _STATS_LOCK:
+        SYNC_STATS[name] += n
 
 
 def path_stats() -> Dict[str, int]:
     """Snapshot of join-path counts: unique_scatter / unique_sort /
     general_csr[_swapped] / dev_csr[_swapped] / general_merge[why] /
     empty_type_mismatch."""
-    return dict(PATH_STATS)
+    with _STATS_LOCK:
+        return dict(PATH_STATS)
 
 
 def sync_stats() -> Dict[str, int]:
     """Snapshot of :data:`SYNC_STATS`."""
-    return dict(SYNC_STATS)
+    with _STATS_LOCK:
+        return dict(SYNC_STATS)
 
 
 # ---------------------------------------------------------------------------
@@ -557,7 +571,7 @@ def _shrink_node(res: _NodeResult, total: int) -> _NodeResult:
         if new_pad >= res.pad:
             res.total_dev = total
             return res
-        SYNC_STATS["shrink_slices"] += 1
+        _count_sync("shrink_slices")
         cut = (lambda a: a[:new_pad].clone()) if SHRINK_COPY else (
             lambda a: a[:new_pad])
         cols = [(cut(d), cut(v)) for d, v in res.cols]
@@ -565,7 +579,7 @@ def _shrink_node(res: _NodeResult, total: int) -> _NodeResult:
     if new_pad * _SHRINK_FACTOR > res.pad:
         res.total_dev = total
         return res
-    SYNC_STATS["shrink_compactions"] += 1
+    _count_sync("shrink_compactions")
     cols = _compact_probe_shaped(tuple(res.cols), res.live, new_pad)
     return _NodeResult(list(cols), total, new_pad, True, res.dicts)
 
@@ -692,14 +706,14 @@ def run_plan(plan: Plan, unique_joins: frozenset, device,
             continue
         syncs += 1
         stats["shrink_syncs"] += 1
-        SYNC_STATS["shrink_syncs"] += 1
+        _count_sync("shrink_syncs")
         for idx, t in zip(wave, fetch_totals(wave)):
             res = results[idx]
             if res.compacted and t > res.pad:
                 # overflow: children are exact (earlier waves), re-dispatch
                 # this node alone with its exact bucket
                 buckets[idx] = join_ops.bucket_size(t)
-                SYNC_STATS["redispatches"] += 1
+                _count_sync("redispatches")
                 res = results[idx] = _run_join(
                     eng, plan, idx, plan.nodes[idx], results, buckets,
                     unique_joins, device,
@@ -713,7 +727,7 @@ def run_plan(plan: Plan, unique_joins: frozenset, device,
     # rides along.
     for _attempt in range(max_attempts):
         fetch_ids = [i for i in join_ids if i not in totals_by_node]
-        SYNC_STATS["totals_fetches"] += bool(fetch_ids)
+        _count_sync("totals_fetches", int(bool(fetch_ids)))
         for i, t in zip(fetch_ids, fetch_totals(fetch_ids)):
             totals_by_node[i] = t
 
@@ -749,7 +763,7 @@ def run_plan(plan: Plan, unique_joins: frozenset, device,
                 n = parent.get(n)
         for idx in order:
             if idx in affected and isinstance(plan.nodes[idx].data, JoinNode):
-                SYNC_STATS["redispatches"] += 1
+                _count_sync("redispatches")
                 results[idx] = _run_join(
                     eng, plan, idx, plan.nodes[idx], results, buckets,
                     unique_joins, device,
@@ -933,7 +947,7 @@ def fetch_root(plan: Plan, root: _NodeResult, totals_by_node: Dict[int, int]):
 
     # root joins are always compacted (the engine excludes the root from
     # the unique fast path) and scans are dense, so rows [0:total) are it
-    SYNC_STATS["root_fetches"] += 1
+    _count_sync("root_fetches")
     k = len(root.cols)
     fetched = eng._fetch([d[:total] for d, _ in root.cols]
                          + [v[:total] for _, v in root.cols])

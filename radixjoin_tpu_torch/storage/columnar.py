@@ -20,6 +20,7 @@ row-variant materialization is what made it allocator-bound, SURVEY.md §3.2).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -309,6 +310,10 @@ class Column:
         self._pages = value
 
 
+#: first decodes of tables (``ColumnarTable.to_host``), striped by id
+_DECODE_LOCKS = [threading.Lock() for _ in range(16)]
+
+
 @dataclasses.dataclass
 class ColumnarTable:
     num_rows: int = 0
@@ -380,9 +385,13 @@ class ColumnarTable:
             values, valid = page_codec.decode_fixed(c.pages, self.num_rows, c.type)
             return HostColumn(c.type, values, valid)
 
-        self._host = HostTable(
-            self.num_rows, host_pool.parallel_map(dec, self.columns)
-        )
+        # threads asking at once share one decode: the engine keys device
+        # uploads by the host column objects, so two twins would upload twice
+        with _DECODE_LOCKS[id(self) % len(_DECODE_LOCKS)]:
+            if self._host is None:
+                self._host = HostTable(
+                    self.num_rows, host_pool.parallel_map(dec, self.columns)
+                )
         return self._host
 
 

@@ -16,6 +16,7 @@ import pytest
 from radixjoin_tpu.harness import datagen as ref_datagen
 from radixjoin_tpu.harness import run as ref_run
 
+from radixjoin_tpu_torch import bench
 from radixjoin_tpu_torch.harness import job_shapes
 from radixjoin_tpu_torch.ops import kernels
 
@@ -23,7 +24,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALE = 0.002
 DETAIL_KEYS = {"queries", "result_rows", "scaled_baseline_ms", "backend",
                "slowest", "batch_wall_ms", "warmup_phase_s",
-               "stage_split_ms", "degradations", "launches"}
+               "stage_split_ms", "degradations", "launches", "feedback"}
 
 
 def _run_bench(**env):
@@ -61,7 +62,8 @@ def test_one_json_line_with_the_reference_fields(cpu_run):
     assert detail["degradations"]["queries"] == {}
     assert not any(v for k, v in detail["degradations"].items()
                    if k != "queries")
-    assert set(detail["warmup_phase_s"]) == {"warmup-exec1", "warmup-exec2"}
+    assert list(detail["warmup_phase_s"]) == [
+        "precompile", "warmup-exec1", "precompile-feedback", "warmup-exec2"]
 
 
 def test_result_rows_equal_the_jax_harness(cpu_run, tmp_path):
@@ -113,6 +115,65 @@ def test_launch_counts_and_host_memory_profile():
     assert detail["launches"] == {k: 0 for k in kernels.launch_counts()}
     tags = [ln.split(":")[0] for ln in proc.stderr.splitlines()
             if ln.startswith("bench[mem] ") and "rss=" in ln]
-    assert tags == ["bench[mem] datagen", "bench[mem] warmup-exec1",
+    assert tags == ["bench[mem] datagen", "bench[mem] precompile",
+                    "bench[mem] warmup-exec1",
+                    "bench[mem] precompile-feedback",
                     "bench[mem] warmup-exec2", "bench[mem] pass 0"]
     assert any("pyheap=" in ln for ln in proc.stderr.splitlines())
+
+
+def test_feedback_store_defaults_to_the_bench_cache(cpu_run):
+    feedback = json.loads(cpu_run.stdout)["detail"]["feedback"]
+    assert feedback["path"] == os.path.join(REPO, ".bench_cache",
+                                            "rjt_feedback.json")
+    assert feedback["plans"] == 5 and 0 <= feedback["loaded"] <= 5
+    assert f"bench: feedback store {feedback['path']}: " in cpu_run.stderr
+
+
+def test_second_run_loads_every_plan_from_the_store(tmp_path):
+    """Two bench processes over one store: the first finds nothing in it
+    and saves every plan, the second loads every plan; both warm in the
+    four phases of the pools and give the same rows."""
+    common = dict(BENCH_PLATFORM="cpu", BENCH_PLANS="builtin",
+                  BENCH_SCALE=str(SCALE), BENCH_REPEAT="1",
+                  BENCH_SECONDARY_SCALE="", BENCH_BATCH="off",
+                  RJT_FEEDBACK_PATH=str(tmp_path / "fb.json"))
+    first = _run_bench(**common)
+    second = _run_bench(**common)
+    for proc in (first, second):
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert f"warmup-exec1 ({bench.POOL_THREADS} threads)" in proc.stderr
+    a = json.loads(first.stdout)["detail"]
+    b = json.loads(second.stdout)["detail"]
+    assert a["result_rows"] == b["result_rows"] > 0
+    assert a["feedback"]["loaded"] == 0 and b["feedback"]["loaded"] == 5
+    for d in (a, b):
+        assert list(d["warmup_phase_s"]) == [
+            "precompile", "warmup-exec1", "precompile-feedback",
+            "warmup-exec2"]
+    assert len(json.loads((tmp_path / "fb.json").read_text())) == 5
+
+
+def test_empty_feedback_path_switches_the_store_off(tmp_path):
+    """An empty ``RJT_FEEDBACK_PATH`` is kept (not replaced by the bench's
+    default) and turns the store off."""
+    proc = _run_bench(BENCH_PLATFORM="cpu", BENCH_PLANS="builtin",
+                      BENCH_SCALE=str(SCALE), BENCH_REPEAT="1",
+                      BENCH_SECONDARY_SCALE="", BENCH_BATCH="off",
+                      RJT_FEEDBACK_PATH="")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    feedback = json.loads(proc.stdout)["detail"]["feedback"]
+    assert feedback == {"path": None, "loaded": 0, "plans": 5}
+    assert "bench: feedback store None: 0 of 5 plans" in proc.stderr
+
+
+def test_a_failing_warm_up_thread_fails_the_bench(tmp_path):
+    # an unknown executor mode makes every execute raise in the pool
+    proc = _run_bench(BENCH_PLATFORM="cpu", BENCH_PLANS="builtin",
+                      BENCH_SCALE=str(SCALE), RJT_EXEC_MODE="bogus",
+                      RJT_FEEDBACK_PATH=str(tmp_path / "fb.json"))
+    assert proc.returncode == 4
+    assert (f"bench: warmup-exec1 ({bench.POOL_THREADS} threads) failed: "
+            "ValueError") in proc.stderr
+    detail = json.loads(proc.stdout)["detail"]
+    assert detail["partial"] == "watchdog fired during warmup-exec1"

@@ -1104,3 +1104,58 @@ def test_scaling_bench_one_nccl_rank(cuda_device, tmp_path):
     assert res["out_rows"] == int((pv & np.isin(pk, bk[bv])).sum())
     assert res["backend"] == "nccl" and res["device"] == "cuda:0"
     assert res["phase_exchange_ms"] > 0 and res["bytes_sent_per_dev"] > 0
+
+
+@pytest.mark.cuda
+def test_precompile_then_threads_under_a_one_query_budget_on_card(
+        job_plans, monkeypatch):
+    """Smoke 9b at a small size: fresh plan objects over the same inputs,
+    precompiled from an 8-wide pool, then six threads executing their plan
+    three times each under a budget that admits one query. No error,
+    evictions, rows equal to the serial fused runs, and the process's
+    launch counts equal to the sum of the threads'."""
+    import concurrent.futures as cf
+    import threading
+
+    from radixjoin_tpu_torch import engine
+
+    plans, fused_results, ctx = job_plans
+    names = ["s1", "s2", "s3", "f64", "s2", "s3"]
+    fresh = [rt.Plan(list(plans[n].nodes), list(plans[n].inputs),
+                     plans[n].root) for n in names]
+    budget = max(engine._estimate_query_bytes(p) for p in fresh) + (64 << 10)
+    monkeypatch.setenv("RJT_HBM_BUDGET_BYTES", str(budget))
+    monkeypatch.delenv("RJT_FEEDBACK_PATH", raising=False)
+    ledger = engine.device_ledger(ctx.device)
+    evictions = ledger.stats["evictions"]
+    with cf.ThreadPoolExecutor(8) as ex:
+        assert all(ex.map(lambda p: engine.precompile_fused(p, ctx), fresh))
+    kernels.reset_launch_counts()
+    errors, got, launched = [], {}, []
+
+    def worker(i):
+        kernels.reset_thread_launch_counts()
+        try:
+            for _ in range(3):
+                got[i] = rt.execute(fresh[i], ctx)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append((names[i], repr(e)))
+        launched.append(kernels.thread_launch_counts())
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(len(fresh))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive(), "admission control deadlocked"
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert ledger.stats["evictions"] > evictions
+    for i, name in enumerate(names):
+        _assert_same_rows(got[i], fused_results[name])
+    total = kernels.launch_counts()
+    assert total == {k: sum(c[k] for c in launched) for k in total}
+    assert total["window_gather"] > 0
+    assert total["blocked_window_gather_multi"] > 0
+    assert not any(engine.engine_stats()[k] for k in engine.ENGINE_STATS)
