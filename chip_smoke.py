@@ -18,11 +18,19 @@ Phases (any failure exits non-zero; the last line of standard output is
    with the route (shared memory or L2) each case took.
    Beside them, for each case: its bound, the bytes the function must
    move (each input read once, each output written once) over the
-   published 3,350 GB/s — every one of the seven is a gather, a function
-   with no arithmetic, so bytes bound them all — and ``library_ms``, the
-   time of the bare PyTorch call that gives the same values
-   (``index_select`` or ``gather`` on an index widened beforehand) — a
-   yardstick only, the package never calls it. The two join gathers also
+   published 3,350 GB/s — seven of the nine are gathers and two are a
+   scatter and a max-scan, functions with next to no arithmetic, so bytes
+   bound them all — and ``library_ms``, the time of the bare PyTorch call
+   that gives the same values (``index_select`` or ``gather`` on an index
+   widened beforehand; ``scatter_reduce_`` + ``cummax`` for the owner
+   recovery, ``cummax`` for the run scan) — a yardstick only, the package
+   never calls it. The two kernels with no Pallas original,
+   ``owner_recovery`` and ``cummax_i32``, run at n = 1, 1,027, 2^20 and
+   2^23 (the pad below, at and above the total, int32 and int64 offsets,
+   no emitter, every row emitting, starts that are no prefix sum, views
+   off 16 bytes, one case on a side stream) and are timed at S3's root
+   shape (2^23 sorted slots, a pad of 2^22), with torch.profiler's device
+   time beside the event bracket. The two join gathers also
    run with mixed element sizes in one call, unaligned table and index
    views, ragged lengths and tables past the shared-memory budget, and
    ``blocked_window_gather_multi`` also as the join calls it, without
@@ -51,8 +59,10 @@ Phases (any failure exits non-zero; the last line of standard output is
    after, then once through ``build_context("cpu")``, where the plain
    versions serve as the oracle. Checked: equal per-join totals, equal
    row multisets, the root cardinality against a numpy count over the
-   base tables, the join strategies covered (merge included), and a
-   launch count above 0 for every kernel of the path.
+   base tables, the join strategies covered (merge included), a launch
+   count above 0 for every kernel of the path, ``owner_recovery``
+   launched by each warm S1, S2 and S3, and ``cummax_i32`` by the warm S3
+   (its root is the merge join).
 4. Device-time path: with the counters set to 0 just before, every case
    of ``harness/devtime.py`` at ``--devtime-size`` rows (default 2^22),
    printed with its ms and share of the HBM figure, then the kernel cases
@@ -191,7 +201,7 @@ Before the last line it prints one JSON object with a record per kernel:
 "launches_dist", "launches_bench", "launches_fuzz", "launches_roofline",
 "launches_scaling", "launches_tools", "launches_cold_start"}, ...]}``
 (``launches`` counts phase
-3 for the engine's three kernels and phase 4 for the others;
+3 for the engine's five kernels and phase 4 for the others;
 ``launches_memory_batch`` counts phase 5, ``launches_shared_sql`` phase 6,
 ``launches_dist`` phase 7; ``launches_bench`` counts 8a's warm-up and
 timed passes, ``launches_fuzz`` 8b, ``launches_roofline`` 8c (wrapper
@@ -462,6 +472,8 @@ def check_kernels(torch, kernels, dev, seed: int):
     many = [rand_table(src_len // 4, torch.int64) for _ in range(20)]
     bwg_case(f"K=20 int64 N={1 << 20}", many,
              (mono[:1 << 20] // 2).contiguous())
+    del tabs, mono, miss, views, wide, many
+    check_owner_kernels(torch, kernels, dev, gen, case)
 
     # the device page decode's calls (PAGED_CASES, _decode_inputs). Beside
     # each case's event bracket, the host time to issue a call and the
@@ -652,6 +664,152 @@ def check_kernels(torch, kernels, dev, seed: int):
              fn_library=table_at(t, i) if body == "2level" else None,
              nbytes=4 * (2 * n + w))
     return records
+
+
+#: rows of the representative owner recovery and run scans: S3's root, a
+#: merge join over a combined pad of 2^23 sorted slots into a bucket of
+#: 2^22 output rows (3,624,434 live at scale 0.1)
+OWNER_ROWS, OWNER_PAD = 1 << 23, 1 << 22
+#: equal-key runs of the synthetic S3-shaped stream: k builds then k probes
+#: a run, k uniform in 1..3, so the probes emit sum k^2 of about 3.62 M rows
+OWNER_RUNS = 776_000
+
+
+def _s3_shaped_counts(torch, gen, dev):
+    """Matches per sorted slot of a merge join shaped like S3's root: runs
+    of k build slots (count 0) then k probe slots (count k each), then an
+    invalid tail of count 0 up to ``OWNER_ROWS`` slots."""
+    k = torch.randint(1, 4, (OWNER_RUNS,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    run_len = 2 * k
+    run = torch.repeat_interleave(torch.arange(OWNER_RUNS, device=dev),
+                                  run_len.long())
+    first = (torch.cumsum(run_len, 0, dtype=torch.int32) - run_len)[run]
+    within = torch.arange(run.shape[0], device=dev, dtype=torch.int32) - first
+    counts = torch.zeros(OWNER_ROWS, dtype=torch.int32, device=dev)
+    counts[:run.shape[0]] = torch.where(within >= k[run], k[run], 0)
+    return counts
+
+
+def check_owner_kernels(torch, kernels, dev, gen, case) -> None:
+    """Phase 2's rows 8 and 9: ``owner_recovery`` and ``cummax_i32``
+    against their plain versions, bit for bit, at n = 1, 1,027, 2^20 and
+    2^23 with the pad below, at and above the total, int32 and int64
+    offsets, no emitter, every row emitting, starts that are no prefix sum,
+    views off 16 bytes and one case on a side stream; timed at S3's root
+    shape, with torch's device time beside the event bracket."""
+    from radixjoin_tpu_torch.harness.kernel_timing import device_ms
+
+    def owner_case(label, offsets, emits, s_pad, representative=False):
+        n = offsets.shape[0]
+        starts = torch.where(emits & (offsets < s_pad), offsets.long(), s_pad)
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+
+        def library():
+            marker = torch.full((s_pad + 1,), -1, dtype=torch.int32,
+                                device=dev)
+            marker.scatter_reduce_(0, starts, iota, "amax")
+            return torch.cummax(marker[:s_pad], 0).values.clamp(0, n - 1)
+
+        def kernel():
+            return kernels.owner_recovery(offsets, emits, s_pad)
+
+        case("owner_recovery", label, kernel,
+             lambda: kernels.owner_recovery_plain(offsets, emits, s_pad),
+             representative, fn_library=library,
+             nbytes=n * (offsets.element_size() + 1) + 4 * s_pad)
+        if representative:
+            _log(f"kernel owner_recovery [{label}]: device "
+                 f"{_device_ms_text(device_ms(kernel))}, library device "
+                 f"{_device_ms_text(device_ms(library))} (torch.profiler)")
+
+    def cummax_case(label, x, representative=False):
+        case("cummax_i32", label, lambda: kernels.cummax_i32(x),
+             lambda: kernels.cummax_i32_plain(x), representative,
+             fn_library=lambda: torch.cummax(x, 0).values,
+             nbytes=8 * x.shape[0])
+        if representative:
+            _log(f"kernel cummax_i32 [{label}]: device "
+                 f"{_device_ms_text(device_ms(lambda: kernels.cummax_i32(x)))}"
+                 f", library device "
+                 f"{_device_ms_text(device_ms(lambda: torch.cummax(x, 0)))}"
+                 " (torch.profiler)")
+
+    # S3's root: the owner recovery of the merge expansion, then the two
+    # run scans of the merge count over the same sorted slots
+    counts = _s3_shaped_counts(torch, gen, dev)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    total = int(counts.sum())
+    if not 0.8 * OWNER_PAD < total <= OWNER_PAD:
+        _fail(f"the S3-shaped stream has {total} rows for a pad of "
+              f"{OWNER_PAD}")
+    owner_case(f"S3 root n={OWNER_ROWS} s_pad={OWNER_PAD} total={total}",
+               offsets, counts > 0, OWNER_PAD, representative=True)
+    slot = torch.arange(OWNER_ROWS, dtype=torch.int32, device=dev)
+    is_start = torch.ones_like(counts, dtype=torch.bool)
+    is_start[1:] = (counts[1:] == 0) & (counts[:-1] != 0)
+    cummax_case(f"S3 run starts n={OWNER_ROWS}",
+                torch.where(is_start, slot, 0), representative=True)
+    del counts, offsets, slot, is_start
+
+    for n in (1, 1027, 1 << 20, 1 << 23):
+        c = torch.tensor([0, 1, 2, 5], device=dev, dtype=torch.int32)[
+            torch.randint(0, 4, (n,), generator=gen, device=dev)]
+        total = int(c.sum())
+        for dtype in (torch.int32, torch.int64):
+            offsets = (torch.cumsum(c, 0, dtype=dtype) - c).to(dtype)
+            for pad, s_pad in (("below", max(total // 2, 1)),
+                               ("at", max(total, 1)),
+                               ("above", total + 3 * kernels.SCAN_TILE + 7)):
+                owner_case(f"n={n} {str(dtype)[6:]} pad {pad} total "
+                           f"({s_pad} for {total})", offsets, c > 0, s_pad)
+        dtype = torch.int64 if n % 2 else torch.int32
+        none = torch.zeros(n, dtype=torch.bool, device=dev)
+        owner_case(f"n={n} no emitter", torch.zeros(n, dtype=dtype,
+                                                    device=dev), none, 5000)
+        owner_case(f"n={n} every row emitting",
+                   torch.arange(n, dtype=dtype, device=dev), ~none, n + 4097)
+        # starts that are no prefix sum, flags drawn on their own, through
+        # views one element off (the scatter's scalar route)
+        s_pad = max(n // 2, 1)
+        pool = torch.randint(0, 2 * s_pad, (n + 1,), generator=gen,
+                             device=dev, dtype=dtype)
+        flags = torch.rand(n + 1, generator=gen, device=dev) < 0.4
+        owner_case(f"n={n} random starts, views one element off",
+                   pool[1:], flags[1:], s_pad)
+        vals = torch.randint(-(2 ** 31), 2 ** 31, (n + 1,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        cummax_case(f"n={n} random values", vals[:n])
+        cummax_case(f"n={n} random values, a view one word off", vals[1:])
+
+    # on a stream other than the default one, inputs made on the default
+    side = torch.cuda.Stream(dev)
+    c = torch.randint(0, 3, (1 << 20,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    offsets = torch.cumsum(c, 0, dtype=torch.int32) - c
+    x = torch.randint(-(2 ** 31), 2 ** 31, (1 << 20,), generator=gen,
+                      device=dev, dtype=torch.int32)
+
+    def on_side(fn):
+        def run():
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                out = fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            return out
+        return run
+
+    total = int(c.sum())
+    case("owner_recovery", f"n={1 << 20} on a side stream",
+         on_side(lambda: kernels.owner_recovery(offsets, c > 0, total)),
+         lambda: kernels.owner_recovery_plain(offsets, c > 0, total))
+    case("cummax_i32", f"n={1 << 20} on a side stream",
+         on_side(lambda: kernels.cummax_i32(x)),
+         lambda: kernels.cummax_i32_plain(x))
+
+
+def _device_ms_text(ms) -> str:
+    return f"{ms:.4f} ms" if ms else "not measured"
 
 
 def compare_paged(torch, kernels, other_path: str, dev, seed: int) -> None:
@@ -851,14 +1009,19 @@ def run_main_path(torch, np, rt, kernels, args):
     ctx = rt.build_context()
     torch.cuda.reset_peak_memory_stats()
     results, wall_ms, rounds = {}, {}, {}
+    warm_launches = {}
     kernels.reset_launch_counts()
     for name, _build, _lazy in shapes:
         for run in ("cold", "warm"):
             torch.cuda.synchronize()
+            before = kernels.launch_counts()
             t1 = time.perf_counter()
             res = rt.execute(plans[name], ctx)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t1) * 1e3
+            if run == "warm":
+                after = kernels.launch_counts()
+                warm_launches[name] = {k: after[k] - before[k] for k in after}
             results[(name, run)] = (res, dict(plans[name]._last_join_totals))
             wall_ms[(name, run)] = ms
             rounds[(name, run)] = plans[name]._last_exec_stats["rounds"]
@@ -906,6 +1069,12 @@ def run_main_path(torch, np, rt, kernels, args):
         _fail(f"strategies {sorted(strategies)} miss one of {need}")
     if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS):
         _fail(f"a kernel of the path was not launched: {launches}")
+    for name in ("S1", "S2", "S3"):
+        _log(f"{name} warm kernel launches: {json.dumps(warm_launches[name])}")
+        if not warm_launches[name]["owner_recovery"]:
+            _fail(f"a warm {name} launched no owner_recovery")
+    if not warm_launches["S3"]["cummax_i32"]:
+        _fail("a warm S3 (the merge join) launched no cummax_i32")
     for name, _build, _lazy in shapes:
         profile_warm(torch, rt, plans[name], ctx, name)
     return {
@@ -923,7 +1092,9 @@ def run_main_path(torch, np, rt, kernels, args):
 
 #: kernels the engine's main path launches (S1-S3, F1)
 MAIN_PATH_KERNELS = ("window_gather", "blocked_window_gather_multi",
-                     "paged_window_gather")
+                     "paged_window_gather", "owner_recovery")
+#: the merge join's run scans: launched on the main path by S3 and F1
+MERGE_PATH_KERNELS = ("cummax_i32",)
 #: kernels the device-time path launches (devtime cases, the three tools)
 DEVTIME_PATH_KERNELS = ("window_gather", "blocked_window_gather_multi",
                         "pallas_gather", "gather_pallas_vmem", "mk_gather",
@@ -2427,7 +2598,9 @@ def profile_warm(torch, rt, plan, ctx, name: str) -> None:
              f"{e.key[:90]}")
     # the hand kernels at this plan's own call shapes
     for e in prof["events"]:
-        if "bwg_kernel" in e.key or "gather_kernel" in e.key:
+        if any(k in e.key for k in ("bwg_kernel", "gather_kernel",
+                                    "max_scan_kernel",
+                                    "owner_scatter_kernel")):
             _log(f"{name} warm hand kernel: "
                  f"{e.self_device_time_total / 1e3:.4f} ms over {e.count} "
                  f"launches of {e.key[:60]}")
@@ -2534,11 +2707,18 @@ def main() -> None:
         "gather_pallas_vmem": ("csrc/resident_gather.cu",
                                "tools/expt_primitives.py:94"),
         "mk_gather": ("csrc/resident_gather.cu", "tools/expt_gather2.py:52"),
+        # no Pallas original: the XLA scatter-max + cummax of the JAX
+        # join expansion, and its merge count's lax.cummax
+        "owner_recovery": ("csrc/owner_recovery.cu",
+                           "radixjoin_tpu/ops/join.py:263"),
+        "cummax_i32": ("csrc/owner_recovery.cu",
+                       "radixjoin_tpu/ops/join.py:383"),
     }
     out = []
     for name, (src, replaces) in meta.items():
         rec = records[name]
-        counted = launches if name in MAIN_PATH_KERNELS else dt_launches
+        counted = (launches if name in MAIN_PATH_KERNELS + MERGE_PATH_KERNELS
+                   else dt_launches)
         out.append({
             "name": name, "route": "cuda",
             "source": f"radixjoin_tpu_torch/{src}", "replaces": replaces,

@@ -413,9 +413,11 @@ def _starts(n: int, device):
 
 
 def case_scatter_max_starts(n: int, device=None):
-    """The owner-recovery scatter in isolation (production shape of
-    ops/join.py::_owner_recovery): n sorted starts scatter-max their index
-    into a 2n+1 marker, then a cummax fills the runs."""
+    """The owner-recovery scatter in torch ops, the JAX package's
+    formulation (ops/kernels.py::owner_recovery_plain; on the card the
+    engine launches ops/kernels.py::owner_recovery instead): n sorted
+    starts scatter-max their index into a 2n+1 marker, then a cummax fills
+    the runs. Kept as the library yardstick of the kernel."""
     device = _default_device(device)
     _rng, s_pad, starts = _starts(n, device)
     iota = torch.arange(n, dtype=torch.int32, device=device)
@@ -455,7 +457,9 @@ def case_gather_sorted(n: int, device=None):
 
 
 def case_cummax(n: int, device=None):
-    """cummax of int32 alone (the scan half of owner recovery)."""
+    """torch's cummax of int32 alone (the scan half of the owner recovery
+    in torch ops; on the card the engine scans with
+    ops/kernels.py::cummax_i32): the library yardstick of that kernel."""
     device = _default_device(device)
     rng = np.random.default_rng(0)
     x = _rand_i32(rng, -1, 1 << 30, n, device)

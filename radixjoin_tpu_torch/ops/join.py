@@ -39,7 +39,10 @@ Three behaviours of JAX that PyTorch does not share are made explicit:
 
 Small lookups (tables of at most ``WINDOW_GATHER_MAX`` rows) and lookups on
 the monotone owner stream go through the hand-written kernels of
-:mod:`.kernels`; int64 payloads gather natively (no hi/lo planes).
+:mod:`.kernels`; int64 payloads gather natively (no hi/lo planes). So do
+the owner recovery of every expansion (:func:`kernels.owner_recovery`: no
+sentinel slot on the card) and the merge join's two run scans
+(:func:`kernels.cummax_i32`).
 """
 
 from __future__ import annotations
@@ -105,17 +108,12 @@ def _iota(n: int, device) -> torch.Tensor:
 
 def _owner_recovery(offsets: torch.Tensor, emits: torch.Tensor,
                     s_pad: int) -> torch.Tensor:
-    """Scatter-max owner recovery: each emitting row's id lands at its
-    output start, a running max fills its run. Starts at or past ``s_pad``
-    go to the sentinel slot (JAX's ``mode="drop"``). Returns the owner per
-    output slot, int32, clamped to the row range (monotone)."""
-    n = offsets.shape[0]
-    starts = torch.where(emits & (offsets < s_pad), offsets.long(), s_pad)
-    marker = torch.full((s_pad + 1,), -1, dtype=torch.int32,
-                        device=offsets.device)
-    marker.scatter_reduce_(0, starts, _iota(n, offsets.device), "amax")
-    owner = torch.cummax(marker[:s_pad], dim=0).values
-    return owner.clamp(0, n - 1)
+    """Owner recovery: the owner row of every output slot, the last
+    emitting row whose output start is at or before it (starts at or past
+    ``s_pad`` count for nothing, JAX's ``mode="drop"``). Returns int32,
+    clamped to the row range (monotone). The JAX package's scatter-max +
+    cummax; :func:`kernels.owner_recovery` gives its values."""
+    return kernels.owner_recovery(offsets, emits, s_pad)
 
 
 def _sort_build(build_keys, build_valid):
@@ -200,8 +198,8 @@ def join_csr_impl(counts_w, starts_w, grouped, probe_keys, probe_valid,
       * ``grouped``  (g_pad,) int32 — build row ids grouped by key offset
 
     Per probe, ``count/start`` come from one shared-index lookup; the
-    expansion recovers each output slot's probe row by scatter-max +
-    cummax and maps within-run offsets through ``grouped``. Duplicates fan
+    expansion recovers each output slot's probe row (:func:`_owner_recovery`)
+    and maps within-run offsets through ``grouped``. Duplicates fan
     out; NULL keys never match; out-of-window probe keys match nothing.
 
     Returns ``(bidx, pidx, live, total)`` in the ``s_pad`` bucket, with an
@@ -333,13 +331,13 @@ def join_merge_impl(build_keys, build_valid, probe_keys, probe_valid,
     for rk in runkey:
         is_start = is_start | torch.cat([rk[:1], rk[:-1]]).ne(rk)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    run_start = torch.cummax(torch.where(is_start, pos, zero), 0).values
+    run_start = kernels.cummax_i32(torch.where(is_start, pos, zero))
     is_probe = side_s.to(torch.int32)
     probe_excl = torch.cumsum(is_probe, 0, dtype=torch.int32) - is_probe
     # probes before each run start, broadcast across the run (monotone, so
     # a running max of start-masked values is exact)
-    probe_at_start = torch.cummax(
-        torch.where(is_start, probe_excl, zero), 0).values
+    probe_at_start = kernels.cummax_i32(
+        torch.where(is_start, probe_excl, zero))
     builds_in_run = (pos - run_start) - (probe_excl - probe_at_start)
     counts = torch.where((is_probe == 1) & valid_s, builds_in_run, zero)
     offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts

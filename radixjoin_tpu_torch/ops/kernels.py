@@ -11,6 +11,16 @@ become CUDA C++ for Hopper (``sm_90a``), in ``radixjoin_tpu_torch/csrc``:
 * :func:`paged_window_gather` (``csrc/paged_window_gather.cu``) — the
   per-page realignment of the device page decode.
 
+Two kernels have no Pallas original: they compute on the card what the
+JAX package writes with XLA ops for the TPU (a scatter-max into a sentinel
+slot and ``lax.cummax``), held to the JAX functions' values
+(``csrc/owner_recovery.cu``):
+
+* :func:`owner_recovery` — the owner row of every output slot of a join
+  expansion;
+* :func:`cummax_i32` — the running max of an int32 stream (the merge
+  join's run scans).
+
 The four kernels of the in-kernel gather experiments (``tools/``) follow:
 
 * :func:`pallas_gather`, :func:`gather_pallas_vmem` and :func:`mk_gather`
@@ -85,6 +95,9 @@ _SIGNATURES = {
                                 _I32, _I32, _VP],
     "rjt_resident_gather": [_I32, _I32, _I32, _VP, _I64, _VP, _VP, _I64,
                             _I32, _I32, _VP],
+    "rjt_owner_recovery": [_I32, _VP, _I32, _VP, _I64, _VP, _I64, _VP, _I64,
+                           _I32, _VP],
+    "rjt_cummax_i32": [_I32, _VP, _VP, _I64, _VP, _I64, _VP],
 }
 
 _lock = threading.Lock()
@@ -706,8 +719,116 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                             RESIDENT_SPAN)
 
 
+# ---------------------------------------------------------------------------
+# owner_recovery, cummax_i32
+# ---------------------------------------------------------------------------
+
+#: values one block of ``max_scan_kernel`` scans (RJT_SCAN_TILE in
+#: csrc/owner_recovery.cu); the scratch holds a status word a tile and the
+#: tile counter
+SCAN_TILE = 4096
+
+
+def _scan_scratch(n: int, device: torch.device) -> torch.Tensor:
+    return torch.empty(-(-n // SCAN_TILE) + 1, dtype=torch.int64,
+                       device=device)
+
+
+def owner_recovery_plain(offsets: torch.Tensor, emits: torch.Tensor,
+                         s_pad: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`owner_recovery`: each emitting row's
+    id scatter-maxed at its output start, starts at or past ``s_pad`` into
+    a sentinel slot (JAX's ``mode="drop"``), a running max, the clamp."""
+    n = offsets.shape[0]
+    starts = torch.where(emits & (offsets < s_pad), offsets.long(), s_pad)
+    marker = torch.full((s_pad + 1,), -1, dtype=torch.int32,
+                        device=offsets.device)
+    marker.scatter_reduce_(0, starts, torch.arange(
+        n, dtype=torch.int32, device=offsets.device), "amax")
+    owner = torch.cummax(marker[:s_pad], dim=0).values
+    return owner.clamp(0, n - 1)
+
+
+def owner_recovery(offsets: torch.Tensor, emits: torch.Tensor,
+                   s_pad: int) -> torch.Tensor:
+    """The owner of every output slot ``0 <= j < s_pad`` of a join
+    expansion: ``clamp(max{i : emits[i], offsets[i] <= j, offsets[i] <
+    s_pad}, 0, n - 1)`` (an empty max is -1), int32 and monotone. ``offsets``
+    is a 1-D int32 or int64 tensor of non-negative output starts, ``emits``
+    a bool tensor of the same length; ``s_pad`` is static.
+
+    On the card: a fill, a scatter-max of the emitting rows only (nothing
+    for the others: no sentinel slot), and one decoupled look-back max-scan
+    with the clamp fused into its store, all on the current stream, with no
+    host sync."""
+    name = "owner_recovery"
+    if offsets.dtype not in (torch.int32, torch.int64) or offsets.dim() != 1:
+        raise TypeError(f"{name}: offsets must be a 1-D int32 or int64 tensor")
+    if emits.dtype != torch.bool or emits.shape != offsets.shape:
+        raise TypeError(f"{name}: emits must be a bool tensor of the offsets' "
+                        "shape")
+    if emits.device != offsets.device:
+        raise ValueError(f"{name}: emits on {emits.device}, offsets on "
+                         f"{offsets.device}")
+    if not (offsets.is_contiguous() and emits.is_contiguous()):
+        raise ValueError(f"{name}: offsets and emits must be contiguous")
+    s_pad = int(s_pad)
+    if s_pad < 0:
+        raise ValueError(f"{name}: s_pad must be >= 0, got {s_pad}")
+    device = offsets.device
+    if device.type == "cpu":
+        return owner_recovery_plain(offsets, emits, s_pad)
+    _cuda_or_raise(device, name)
+    lib = build()
+    out = torch.empty(s_pad, dtype=torch.int32, device=device)
+    if s_pad == 0:
+        return out
+    scratch = _scan_scratch(s_pad, device)
+    rc = lib.rjt_owner_recovery(
+        _index(device), offsets.data_ptr(), int(offsets.dtype == torch.int64),
+        emits.data_ptr(), offsets.shape[0], out.data_ptr(), s_pad,
+        scratch.data_ptr(), scratch.shape[0], _device_limits(device)[0],
+        _stream(device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    _count_launch(owner_recovery)
+    return out
+
+
+def cummax_i32_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cummax_i32`."""
+    return torch.cummax(x, 0).values
+
+
+def cummax_i32(x: torch.Tensor) -> torch.Tensor:
+    """``out[j] = max(x[0 .. j])`` for a 1-D int32 tensor: on the card one
+    decoupled look-back max-scan on the current stream, with no host
+    sync."""
+    name = "cummax_i32"
+    if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+        raise TypeError(f"{name}: x must be a contiguous 1-D int32 tensor")
+    if x.device.type == "cpu":
+        return cummax_i32_plain(x)
+    _cuda_or_raise(x.device, name)
+    lib = build()
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    scratch = _scan_scratch(n, x.device)
+    rc = lib.rjt_cummax_i32(_index(x.device), x.data_ptr(), out.data_ptr(), n,
+                            scratch.data_ptr(), scratch.shape[0],
+                            _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    _count_launch(cummax_i32)
+    return out
+
+
 _WRAPPERS = (window_gather, blocked_window_gather_multi, paged_window_gather,
-             pallas_gather, gather_pallas_vmem, mk_gather, onehot_gather)
+             pallas_gather, gather_pallas_vmem, mk_gather, onehot_gather,
+             owner_recovery, cummax_i32)
 reset_launch_counts()
 for _fn in (paged_window_gather, pallas_gather, gather_pallas_vmem,
             mk_gather):

@@ -1159,3 +1159,161 @@ def test_precompile_then_threads_under_a_one_query_budget_on_card(
     assert total["window_gather"] > 0
     assert total["blocked_window_gather_multi"] > 0
     assert not any(engine.engine_stats()[k] for k in engine.ENGINE_STATS)
+
+
+# ---------------------------------------------------------------------------
+# owner_recovery and cummax_i32 (csrc/owner_recovery.cu)
+# ---------------------------------------------------------------------------
+
+_OWNER_SIZES = [1, 1027, 1 << 20, 1 << 23]
+
+
+def _owner_inputs(dev, n, dtype, pad, seed=0):
+    """Offsets and emits of an expansion over ``n`` rows with counts in
+    {0, 1, 2, 5}, and the pad below, at or above their total."""
+    rng = np.random.default_rng([n, seed])
+    counts = rng.choice(np.array([0, 1, 2, 5]), n)
+    offsets = np.cumsum(counts) - counts
+    total = int(counts.sum())
+    s_pad = {"below": max(total // 2, 1), "at": max(total, 1),
+             "above": total + 3 * kernels.SCAN_TILE + 7}[pad]
+    return (torch.from_numpy(offsets.astype(dtype)).to(dev),
+            torch.from_numpy(counts > 0).to(dev), s_pad)
+
+
+def _owner_both(offsets, emits, s_pad):
+    got = kernels.owner_recovery(offsets, emits, s_pad)
+    want = kernels.owner_recovery_plain(offsets, emits, s_pad)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("pad", ["below", "at", "above"])
+@pytest.mark.parametrize("n", _OWNER_SIZES)
+def test_cuda_owner_recovery_matches_plain(cuda_device, n, pad, dtype):
+    offsets, emits, s_pad = _owner_inputs(cuda_device, n, dtype, pad)
+    kernels.reset_launch_counts()
+    got, want = _owner_both(offsets, emits, s_pad)
+    assert kernels.launch_counts()["owner_recovery"] == 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", _OWNER_SIZES)
+def test_cuda_owner_recovery_edges(cuda_device, n, dtype):
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(n)
+    zeros = torch.zeros(n, dtype=dtype, device=dev)
+    # no emitter; every row emitting
+    for emits, offsets, s_pad in (
+            (torch.zeros(n, dtype=torch.bool, device=dev), zeros, 5000),
+            (torch.ones(n, dtype=torch.bool, device=dev),
+             torch.arange(n, dtype=dtype, device=dev), n + 4097)):
+        got, want = _owner_both(offsets, emits, s_pad)
+        assert torch.equal(got, want)
+    # starts that are no prefix sum, flags drawn on their own, starts past
+    # the pad; then the same through views one element off their start (the
+    # scatter's scalar route)
+    s_pad = max(n // 2, 1)
+    pool = torch.randint(0, 2 * s_pad, (n + 1,), generator=gen, device=dev,
+                         dtype=dtype)
+    flags = torch.rand(n + 1, generator=gen, device=dev) < 0.4
+    for offsets, emits in ((pool[:n], flags[:n]), (pool[1:], flags[1:])):
+        got, want = _owner_both(offsets, emits, s_pad)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _OWNER_SIZES)
+def test_cuda_cummax_i32_matches_plain(cuda_device, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    pool = torch.randint(-(1 << 31), 1 << 31, (n + 1,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    # random values, a monotone-masked run stream, an unaligned view
+    is_start = torch.rand(n, generator=gen, device=cuda_device) < 0.1
+    pos = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    runs = torch.where(is_start, pos, torch.zeros_like(pos))
+    kernels.reset_launch_counts()
+    for x in (pool[:n], runs, pool[1:]):
+        got = kernels.cummax_i32(x)
+        assert torch.equal(got, kernels.cummax_i32_plain(x))
+    assert kernels.launch_counts()["cummax_i32"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_owner_kernels_on_a_side_stream(cuda_device):
+    offsets, emits, s_pad = _owner_inputs(cuda_device, 1 << 23, np.int32,
+                                          "at", seed=1)
+    x = torch.randint(-(1 << 31), 1 << 31, (1 << 23,), device=cuda_device,
+                      dtype=torch.int32)
+    want = (kernels.owner_recovery_plain(offsets, emits, s_pad),
+            kernels.cummax_i32_plain(x))
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = (kernels.owner_recovery(offsets, emits, s_pad),
+               kernels.cummax_i32(x))
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_owner_kernels_make_no_host_sync(cuda_device):
+    offsets, emits, s_pad = _owner_inputs(cuda_device, 1 << 20, np.int64,
+                                          "above")
+    x = offsets.to(torch.int32)
+    kernels.owner_recovery(offsets, emits, s_pad)  # built before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (kernels.owner_recovery(offsets, emits, s_pad),
+               kernels.cummax_i32(x))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got[0], kernels.owner_recovery_plain(offsets, emits,
+                                                            s_pad))
+    assert torch.equal(got[1], kernels.cummax_i32_plain(x))
+
+
+@pytest.mark.cuda
+def test_cuda_owner_kernels_under_graph_capture(cuda_device):
+    n = 1 << 20
+    offsets, emits, s_pad = _owner_inputs(cuda_device, n, np.int32, "at")
+    x = offsets.clone()
+    for _ in range(2):  # built, and the card's limits read, before capture
+        kernels.owner_recovery(offsets, emits, s_pad)
+        kernels.cummax_i32(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        owner = kernels.owner_recovery(offsets, emits, s_pad)
+        run_max = kernels.cummax_i32(x)
+    for seed in (2, 3):
+        o2, e2, _s = _owner_inputs(cuda_device, n, np.int32, "at", seed=seed)
+        offsets.copy_(o2)
+        emits.copy_(e2)
+        x.copy_(torch.flip(o2, (0,)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(owner, kernels.owner_recovery_plain(offsets, emits,
+                                                               s_pad))
+        assert torch.equal(run_max, kernels.cummax_i32_plain(x))
+
+
+@pytest.mark.cuda
+def test_cuda_owner_wrappers_raise_when_the_library_is_unbuilt(
+        cuda_device, tmp_path, monkeypatch):
+    # no sources to build from: the wrappers raise, with no plain fallback
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "_CSRC", str(tmp_path / "csrc"))
+    monkeypatch.setattr(kernels, "_BUILD_DIR", str(tmp_path / "build"))
+    offsets = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    emits = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        kernels.owner_recovery(offsets, emits, 16)
+    with pytest.raises(RuntimeError):
+        kernels.cummax_i32(offsets)
