@@ -22,15 +22,19 @@ Phases (any failure exits non-zero; the last line of standard output is
    scatter and a max-scan, functions with next to no arithmetic, so bytes
    bound them all — and ``library_ms``, the time of the bare PyTorch call
    that gives the same values (``index_select`` or ``gather`` on an index
-   widened beforehand; ``scatter_reduce_`` + ``cummax`` for the owner
-   recovery, ``cummax`` for the run scan) — a yardstick only, the package
+   widened beforehand; ``searchsorted`` for the owner recovery, with the
+   JAX formulation's sentinel ``scatter_reduce_`` + ``cummax`` printed
+   beside it; ``cummax`` for the run scan) — a yardstick only, the package
    never calls it. The two kernels with no Pallas original,
    ``owner_recovery`` and ``cummax_i32``, run at n = 1, 1,027, 2^20 and
    2^23 (the pad below, at and above the total, int32 and int64 offsets,
-   no emitter, every row emitting, starts that are no prefix sum, views
-   off 16 bytes, one case on a side stream) and are timed at S3's root
-   shape (2^23 sorted slots, a pad of 2^22), with torch.profiler's device
-   time beside the event bracket. The two join gathers also
+   no emitter, every row emitting, zero-count runs longer than a tile, one
+   row over three tiles, an int32 total, a pad one below the total, no
+   rows, views off 16 bytes, one case on a side stream) and are timed at
+   S3's root shape (2^23 sorted slots, a pad of 2^22), the owner recovery
+   also at 2^23 rows with pads of 8 and 17 M and at 2^20 and 1,027 rows,
+   with torch.profiler's device time beside the event bracket. The two
+   join gathers also
    run with mixed element sizes in one call, unaligned table and index
    views, ragged lengths and tables past the shared-memory budget, and
    ``blocked_window_gather_multi`` also as the join calls it, without
@@ -210,14 +214,20 @@ calls: a CUDA graph's replay launches again uncounted),
 is their sum, the whole of phase 8; ``launches_cold_start`` counts 9b's
 threads).
 
-With ``--kernels``, only the page gather's decode cases of phase 2 run, to
-compare two builds of ``paged_window_gather`` on one card: this
-checkout's wrapper and that of another checkout's ``ops/kernels.py``
-(built from that checkout's sources, for example a parent commit
-unpacked with ``git archive``), each held equal to the plain version and
-timed in turns other, this, this, other, then ``gather``: event bracket,
-host ms to issue a call, profiler device ms, and device ms with the L2
-flushed before every call. It prints no result line.
+With ``--kernels``, no phase runs; instead two builds of kernels are
+compared on one card: this checkout's wrappers and those of another
+checkout's ``ops/kernels.py`` (built from that checkout's sources, for
+example a parent commit unpacked with ``git archive``), each held equal to
+the plain version and timed in turns other, this, this, other, then the
+PyTorch yardstick: the page gather's decode cases of phase 2 (event
+bracket, host ms to issue a call, profiler device ms, and device ms with
+the L2 flushed before every call, then ``gather``), then
+``owner_recovery`` at S3's root, at
+2^23 rows with pads of 8 and 17 M and at 2^20 and 1,027 rows, and
+``cummax_i32`` at S3's run starts and 2^23, 2^20 and 1,027 random values
+(event bracket, profiler device ms and its split by kernel or memset, the
+bound; then ``searchsorted``, the sentinel scatter-max + ``cummax`` and
+``torch.cummax``). It prints no result line.
 """
 
 from __future__ import annotations
@@ -691,37 +701,89 @@ def _s3_shaped_counts(torch, gen, dev):
     return counts
 
 
+def _owner_prefix(torch, counts, dtype=None, total_dtype=None):
+    """``(offsets, total)`` of non-negative ``counts`` as the join
+    expansions form them: the exclusive prefix sum (``dtype``, default the
+    counts') and the sum as a one-element device tensor."""
+    dtype = dtype or counts.dtype
+    offsets = (torch.cumsum(counts, 0, dtype=dtype) - counts).to(dtype)
+    total = counts.sum(dtype=total_dtype or torch.int64).reshape(1)
+    return offsets, total
+
+
+def _owner_library(torch, offsets, total, s_pad):
+    """The two bare PyTorch yardsticks of ``owner_recovery``, each giving its
+    values: ``torch.searchsorted`` of the slots' keys among the offsets
+    (the function the kernel computes), and the JAX formulation's sentinel
+    ``scatter_reduce_`` + ``cummax`` + clamp (``emits`` formed beforehand,
+    as the JAX callers form it)."""
+    n = offsets.shape[0]
+    dev = offsets.device
+    keys = torch.arange(s_pad, device=dev, dtype=offsets.dtype)
+    tot = total.reshape(1).to(offsets.dtype)
+    emits = torch.diff(offsets, append=tot) > 0
+    starts = torch.where(emits & (offsets < s_pad), offsets.long(), s_pad)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def searchsorted():
+        k = torch.minimum(keys, tot - 1)
+        pos = torch.searchsorted(offsets, k, right=True, out_int32=True)
+        return (pos - 1).clamp_(0, n - 1)
+
+    def sentinel():
+        marker = torch.full((s_pad + 1,), -1, dtype=torch.int32, device=dev)
+        marker.scatter_reduce_(0, starts, iota, "amax")
+        return torch.cummax(marker[:s_pad], 0).values.clamp(0, n - 1)
+
+    return searchsorted, sentinel
+
+
+def _owner_bytes(offsets, s_pad) -> tuple:
+    """Least bytes of ``owner_recovery`` now (offsets, the total, the
+    owners) and under the earlier contract (offsets, one emit flag a row,
+    the owners)."""
+    n = offsets.shape[0]
+    return (n * offsets.element_size() + 8 + 4 * s_pad,
+            n * (offsets.element_size() + 1) + 4 * s_pad)
+
+
 def check_owner_kernels(torch, kernels, dev, gen, case) -> None:
     """Phase 2's rows 8 and 9: ``owner_recovery`` and ``cummax_i32``
     against their plain versions, bit for bit, at n = 1, 1,027, 2^20 and
     2^23 with the pad below, at and above the total, int32 and int64
-    offsets, no emitter, every row emitting, starts that are no prefix sum,
-    views off 16 bytes and one case on a side stream; timed at S3's root
-    shape, with torch's device time beside the event bracket."""
-    from radixjoin_tpu_torch.harness.kernel_timing import device_ms
+    offsets, the edges of the contract (no emitter, every row emitting,
+    zero-count runs of 5,000 rows at the head, middle and tail, one row
+    over three tiles, a total of 0, an int32 total, a pad one below the
+    total, no rows, views off 16 bytes) and one case on a side stream;
+    timed at S3's root shape, at 2^23 rows with pads of 8 and 17 M, at
+    2^20 and 1,027 rows, with torch's device time beside the event
+    bracket and both PyTorch yardsticks."""
+    from radixjoin_tpu_torch.harness.kernel_timing import bracket_ms, device_ms
 
-    def owner_case(label, offsets, emits, s_pad, representative=False):
-        n = offsets.shape[0]
-        starts = torch.where(emits & (offsets < s_pad), offsets.long(), s_pad)
-        iota = torch.arange(n, dtype=torch.int32, device=dev)
-
-        def library():
-            marker = torch.full((s_pad + 1,), -1, dtype=torch.int32,
-                                device=dev)
-            marker.scatter_reduce_(0, starts, iota, "amax")
-            return torch.cummax(marker[:s_pad], 0).values.clamp(0, n - 1)
+    def owner_case(label, offsets, total, s_pad, representative=False,
+                   timed=False):
+        searchsorted, sentinel = _owner_library(torch, offsets, total, s_pad)
 
         def kernel():
-            return kernels.owner_recovery(offsets, emits, s_pad)
+            return kernels.owner_recovery(offsets, total, s_pad)
 
+        nbytes, old_bytes = _owner_bytes(offsets, s_pad)
         case("owner_recovery", label, kernel,
-             lambda: kernels.owner_recovery_plain(offsets, emits, s_pad),
-             representative, fn_library=library,
-             nbytes=n * (offsets.element_size() + 1) + 4 * s_pad)
-        if representative:
-            _log(f"kernel owner_recovery [{label}]: device "
-                 f"{_device_ms_text(device_ms(kernel))}, library device "
-                 f"{_device_ms_text(device_ms(library))} (torch.profiler)")
+             lambda: kernels.owner_recovery_plain(offsets, total, s_pad),
+             representative, fn_library=searchsorted, nbytes=nbytes)
+        if not (representative or timed):
+            return
+        if not torch.equal(sentinel(), kernel()):
+            _fail(f"owner_recovery [{label}]: the sentinel scatter-max "
+                  "disagrees")
+        _log(f"kernel owner_recovery [{label}]: device "
+             f"{_device_ms_text(device_ms(kernel))}, searchsorted device "
+             f"{_device_ms_text(device_ms(searchsorted))}; sentinel "
+             f"scatter-max + cummax {bracket_ms(sentinel):.4f} ms, device "
+             f"{_device_ms_text(device_ms(sentinel))} (torch.profiler); "
+             f"bound under the earlier contract "
+             f"{old_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+             f"({old_bytes / 1e6:.1f} MB)")
 
     def cummax_case(label, x, representative=False):
         case("cummax_i32", label, lambda: kernels.cummax_i32(x),
@@ -738,13 +800,12 @@ def check_owner_kernels(torch, kernels, dev, gen, case) -> None:
     # S3's root: the owner recovery of the merge expansion, then the two
     # run scans of the merge count over the same sorted slots
     counts = _s3_shaped_counts(torch, gen, dev)
-    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    total = int(counts.sum())
-    if not 0.8 * OWNER_PAD < total <= OWNER_PAD:
-        _fail(f"the S3-shaped stream has {total} rows for a pad of "
-              f"{OWNER_PAD}")
-    owner_case(f"S3 root n={OWNER_ROWS} s_pad={OWNER_PAD} total={total}",
-               offsets, counts > 0, OWNER_PAD, representative=True)
+    offsets, total = _owner_prefix(torch, counts)
+    t = int(total)
+    if not 0.8 * OWNER_PAD < t <= OWNER_PAD:
+        _fail(f"the S3-shaped stream has {t} rows for a pad of {OWNER_PAD}")
+    owner_case(f"S3 root n={OWNER_ROWS} s_pad={OWNER_PAD} total={t}",
+               offsets, total, OWNER_PAD, representative=True)
     slot = torch.arange(OWNER_ROWS, dtype=torch.int32, device=dev)
     is_start = torch.ones_like(counts, dtype=torch.bool)
     is_start[1:] = (counts[1:] == 0) & (counts[:-1] != 0)
@@ -752,41 +813,58 @@ def check_owner_kernels(torch, kernels, dev, gen, case) -> None:
                 torch.where(is_start, slot, 0), representative=True)
     del counts, offsets, slot, is_start
 
+    tile = kernels.OWNER_TILE
     for n in (1, 1027, 1 << 20, 1 << 23):
         c = torch.tensor([0, 1, 2, 5], device=dev, dtype=torch.int32)[
             torch.randint(0, 4, (n,), generator=gen, device=dev)]
-        total = int(c.sum())
+        t = int(c.sum())
         for dtype in (torch.int32, torch.int64):
-            offsets = (torch.cumsum(c, 0, dtype=dtype) - c).to(dtype)
-            for pad, s_pad in (("below", max(total // 2, 1)),
-                               ("at", max(total, 1)),
-                               ("above", total + 3 * kernels.SCAN_TILE + 7)):
+            offsets, total = _owner_prefix(torch, c, dtype)
+            for pad, s_pad in (("below", max(t // 2, 1)),
+                               ("at", max(t, 1)),
+                               ("above", t + 3 * tile + 7)):
                 owner_case(f"n={n} {str(dtype)[6:]} pad {pad} total "
-                           f"({s_pad} for {total})", offsets, c > 0, s_pad)
+                           f"({s_pad} for {t})", offsets, total, s_pad,
+                           timed=dtype == torch.int32 and pad != "above"
+                           and n > 1)
         dtype = torch.int64 if n % 2 else torch.int32
-        none = torch.zeros(n, dtype=torch.bool, device=dev)
-        owner_case(f"n={n} no emitter", torch.zeros(n, dtype=dtype,
-                                                    device=dev), none, 5000)
+        zero = torch.zeros(n, dtype=dtype, device=dev)
+        owner_case(f"n={n} no emitter",
+                   *_owner_prefix(torch, zero), 5000)
         owner_case(f"n={n} every row emitting",
-                   torch.arange(n, dtype=dtype, device=dev), ~none, n + 4097)
-        # starts that are no prefix sum, flags drawn on their own, through
-        # views one element off (the scatter's scalar route)
-        s_pad = max(n // 2, 1)
-        pool = torch.randint(0, 2 * s_pad, (n + 1,), generator=gen,
-                             device=dev, dtype=dtype)
-        flags = torch.rand(n + 1, generator=gen, device=dev) < 0.4
-        owner_case(f"n={n} random starts, views one element off",
-                   pool[1:], flags[1:], s_pad)
+                   *_owner_prefix(torch, zero + 1), n + 4097)
+        run = torch.zeros(5000, dtype=dtype, device=dev)
+        cd = c.to(dtype)
+        for where, cc in (("head", torch.cat([run, cd])),
+                          ("middle", torch.cat([cd[:n // 2], run,
+                                                cd[n // 2:]])),
+                          ("tail", torch.cat([cd, run]))):
+            offsets, total = _owner_prefix(torch, cc)
+            owner_case(f"n={n} a zero-count run of 5000 at the {where}",
+                       offsets, total, int(total) + 2 * tile)
+        big = cd.clone()
+        big[n // 2] = 3 * tile
+        offsets, total = _owner_prefix(torch, big, total_dtype=torch.int32)
+        owner_case(f"n={n} one row over three tiles, an int32 total",
+                   offsets, total, int(total) + 5)
+        owner_case(f"n={n} a pad one below the total", offsets, total,
+                   int(total) - 1)
+        # views one element off 16 bytes: the staging's plain-load route
+        pool, total = _owner_prefix(torch, torch.cat([cd[:1] * 0, cd]))
+        owner_case(f"n={n} a view one element off", pool[1:], total,
+                   max(t, 1))
         vals = torch.randint(-(2 ** 31), 2 ** 31, (n + 1,), generator=gen,
                              device=dev, dtype=torch.int32)
         cummax_case(f"n={n} random values", vals[:n])
         cummax_case(f"n={n} random values, a view one word off", vals[1:])
+    owner_case("no rows", *_owner_prefix(
+        torch, torch.zeros(0, dtype=torch.int32, device=dev)), 9000)
 
     # on a stream other than the default one, inputs made on the default
     side = torch.cuda.Stream(dev)
     c = torch.randint(0, 3, (1 << 20,), generator=gen, device=dev,
                       dtype=torch.int32)
-    offsets = torch.cumsum(c, 0, dtype=torch.int32) - c
+    offsets, total = _owner_prefix(torch, c)
     x = torch.randint(-(2 ** 31), 2 ** 31, (1 << 20,), generator=gen,
                       device=dev, dtype=torch.int32)
 
@@ -799,10 +877,10 @@ def check_owner_kernels(torch, kernels, dev, gen, case) -> None:
             return out
         return run
 
-    total = int(c.sum())
+    s_pad = int(total)
     case("owner_recovery", f"n={1 << 20} on a side stream",
-         on_side(lambda: kernels.owner_recovery(offsets, c > 0, total)),
-         lambda: kernels.owner_recovery_plain(offsets, c > 0, total))
+         on_side(lambda: kernels.owner_recovery(offsets, total, s_pad)),
+         lambda: kernels.owner_recovery_plain(offsets, total, s_pad))
     case("cummax_i32", f"n={1 << 20} on a side stream",
          on_side(lambda: kernels.cummax_i32(x)),
          lambda: kernels.cummax_i32_plain(x))
@@ -812,23 +890,15 @@ def _device_ms_text(ms) -> str:
     return f"{ms:.4f} ms" if ms else "not measured"
 
 
-def compare_paged(torch, kernels, other_path: str, dev, seed: int) -> None:
+def compare_paged(torch, kernels, other, dev, seed: int) -> None:
     """``--kernels``: this checkout's paged_window_gather beside another
-    checkout's (``other_path``, its ``ops/kernels.py``) and gather, at the
-    decode's calls, in turns other, this, this, other."""
-    import importlib.util
-
+    checkout's (``other``, its ``ops/kernels.py`` loaded) and gather, at
+    the decode's calls, in turns other, this, this, other."""
     from radixjoin_tpu_torch.harness.kernel_timing import (bracket_ms,
                                                            device_ms,
                                                            enqueue_ms,
                                                            l2_flusher)
 
-    spec = importlib.util.spec_from_file_location("other_kernels", other_path)
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
-    other.build()
-    _log(f"other kernels: {other.__file__}, built in "
-         f"{other.BUILD_INFO['seconds']:.1f} s")
     flush = l2_flusher(dev)
     for npages, rows in PAGED_CASES:
         body, idx = _decode_inputs(torch, npages, rows, seed, dev)
@@ -853,6 +923,101 @@ def compare_paged(torch, kernels, other_path: str, dev, seed: int) -> None:
                  + (f"{flushed:.4f} ms" if flushed else "not measured")
                  + f"; bound {bound:.4f} ms")
         del body, idx, i64, want
+
+
+def _load_other_kernels(other_path: str):
+    """Another checkout's ``ops/kernels.py``, loaded and built."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("other_kernels", other_path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.build()
+    _log(f"other kernels: {other.__file__}, built in "
+         f"{other.BUILD_INFO['seconds']:.1f} s")
+    return other
+
+
+def compare_owner(torch, kernels, other, dev, seed: int) -> None:
+    """``--kernels``: this checkout's ``owner_recovery`` and ``cummax_i32``
+    beside another checkout's, in turns other, this, this, other, at S3's
+    root, at 2^23 rows with pads of 8 and 17 M, at 2^20 and 1,027 rows
+    (int32 offsets), then the PyTorch yardsticks: per turn the event
+    bracket, the profiler's device time and its split by kernel or copy.
+    An ``owner_recovery`` of the earlier contract ``(offsets, emits,
+    s_pad)`` gets the emit flags formed beforehand, as its callers did."""
+    import inspect
+
+    from radixjoin_tpu_torch.harness.kernel_timing import (bracket_ms,
+                                                           device_times)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    takes_emits = "emits" in inspect.signature(other.owner_recovery).parameters
+    cases = []
+    counts = _s3_shaped_counts(torch, gen, dev)
+    cases.append((f"S3 root n={OWNER_ROWS} s_pad={OWNER_PAD}", counts,
+                  lambda t: OWNER_PAD))
+    for n in (1 << 23, 1 << 20, 1027):
+        c = torch.tensor([0, 1, 2, 5], device=dev, dtype=torch.int32)[
+            torch.randint(0, 4, (n,), generator=gen, device=dev)]
+        cases.append((f"n={n} pad below", c, lambda t: max(t // 2, 1)))
+        cases.append((f"n={n} pad at", c, lambda t: max(t, 1)))
+
+    def show(who, label, fn, bound_ms):
+        split = device_times(fn)
+        dev_ms = sum(split.values()) if split else None
+        parts = ", ".join(f"{k[:40]} {v:.4f}" for k, v in
+                          sorted(split.items(), key=lambda kv: -kv[1]))
+        ms = bracket_ms(fn)
+        _log(f"{label} {who}: bracket {ms:.4f} ms, device "
+             f"{_device_ms_text(dev_ms)} [{parts}]; bound {bound_ms:.4f} ms"
+             + (f", {100.0 * bound_ms / dev_ms:.1f}% of it by device time"
+                if dev_ms else ""))
+
+    for label, c, pad_of in cases:
+        offsets, total = _owner_prefix(torch, c)
+        s_pad = pad_of(int(total))
+        want = kernels.owner_recovery_plain(offsets, total, s_pad)
+        emits = torch.diff(offsets, append=total.to(offsets.dtype)) > 0
+        nbytes, old_bytes = _owner_bytes(offsets, s_pad)
+        searchsorted, sentinel = _owner_library(torch, offsets, total, s_pad)
+        fns = {"other": ((lambda: other.owner_recovery(offsets, emits, s_pad))
+                         if takes_emits else
+                         (lambda: other.owner_recovery(offsets, total,
+                                                       s_pad))),
+               "this": lambda: kernels.owner_recovery(offsets, total, s_pad),
+               "searchsorted": searchsorted, "sentinel": sentinel}
+        _log(f"owner [{label} total={int(total)}]: least bytes {nbytes} "
+             f"(earlier contract {old_bytes}, bound "
+             f"{old_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        for who in ("other", "this", "this", "other", "searchsorted",
+                    "sentinel"):
+            fn = fns[who]
+            if not torch.equal(fn(), want):
+                _fail(f"owner_recovery [{label}]: {who} differs from the "
+                      "plain version")
+            show(who, f"owner [{label}]", fn,
+                 nbytes / HBM_BYTES_PER_S * 1e3)
+    x_cases = []
+    slot = torch.arange(OWNER_ROWS, dtype=torch.int32, device=dev)
+    is_start = torch.ones_like(counts, dtype=torch.bool)
+    is_start[1:] = (counts[1:] == 0) & (counts[:-1] != 0)
+    x_cases.append((f"S3 run starts n={OWNER_ROWS}",
+                    torch.where(is_start, slot, 0)))
+    for n in (1 << 23, 1 << 20, 1027):
+        x_cases.append((f"n={n} random values", torch.randint(
+            -(2 ** 31), 2 ** 31, (n,), generator=gen, device=dev,
+            dtype=torch.int32)))
+    for label, x in x_cases:
+        want = kernels.cummax_i32_plain(x)
+        fns = {"other": lambda: other.cummax_i32(x),
+               "this": lambda: kernels.cummax_i32(x),
+               "torch.cummax": lambda: torch.cummax(x, 0).values}
+        for who in ("other", "this", "this", "other", "torch.cummax"):
+            if not torch.equal(fns[who](), want):
+                _fail(f"cummax_i32 [{label}]: {who} differs")
+            show(who, f"cummax [{label}]", fns[who],
+                 8 * x.shape[0] / HBM_BYTES_PER_S * 1e3)
 
 
 def time_decode(torch, dev, seed: int) -> None:
@@ -2600,7 +2765,7 @@ def profile_warm(torch, rt, plan, ctx, name: str) -> None:
     for e in prof["events"]:
         if any(k in e.key for k in ("bwg_kernel", "gather_kernel",
                                     "max_scan_kernel",
-                                    "owner_scatter_kernel")):
+                                    "owner_merge_kernel")):
             _log(f"{name} warm hand kernel: "
                  f"{e.self_device_time_total / 1e3:.4f} ms over {e.count} "
                  f"launches of {e.key[:60]}")
@@ -2613,7 +2778,7 @@ def main() -> None:
     ap.add_argument("--devtime-size", type=int, default=1 << 22)
     ap.add_argument("--kernels", default=None,
                     help="another checkout's ops/kernels.py: compare its "
-                         "paged_window_gather with this one's, and stop")
+                         "kernels with this one's, and stop")
     ap.add_argument("--cold-child", nargs=2, default=None,
                     help=argparse.SUPPRESS)  # phase 9a's child process
     args = ap.parse_args()
@@ -2659,8 +2824,12 @@ def main() -> None:
     phase_done("phase 1 (environment and build)")
     dev = torch.device("cuda")
     if args.kernels:
-        compare_paged(torch, kernels, args.kernels, dev, args.seed)
+        other = _load_other_kernels(args.kernels)
+        compare_paged(torch, kernels, other, dev, args.seed)
         phase_done("paged_window_gather against the other checkout's")
+        compare_owner(torch, kernels, other, dev, args.seed)
+        phase_done("owner_recovery and cummax_i32 against the other "
+                   "checkout's")
         return
     # phase 2: kernels against their plain versions
     records = check_kernels(torch, kernels, dev, args.seed)

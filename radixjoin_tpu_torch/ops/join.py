@@ -40,8 +40,9 @@ Three behaviours of JAX that PyTorch does not share are made explicit:
 Small lookups (tables of at most ``WINDOW_GATHER_MAX`` rows) and lookups on
 the monotone owner stream go through the hand-written kernels of
 :mod:`.kernels`; int64 payloads gather natively (no hi/lo planes). So do
-the owner recovery of every expansion (:func:`kernels.owner_recovery`: no
-sentinel slot on the card) and the merge join's two run scans
+the owner recovery of every expansion (:func:`kernels.owner_recovery`: a
+sorted search of the slots among the offsets on the card, no sentinel
+slot) and the merge join's two run scans
 (:func:`kernels.cummax_i32`).
 """
 
@@ -106,14 +107,15 @@ def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def _owner_recovery(offsets: torch.Tensor, emits: torch.Tensor,
+def _owner_recovery(offsets: torch.Tensor, total: torch.Tensor,
                     s_pad: int) -> torch.Tensor:
-    """Owner recovery: the owner row of every output slot, the last
-    emitting row whose output start is at or before it (starts at or past
-    ``s_pad`` count for nothing, JAX's ``mode="drop"``). Returns int32,
-    clamped to the row range (monotone). The JAX package's scatter-max +
-    cummax; :func:`kernels.owner_recovery` gives its values."""
-    return kernels.owner_recovery(offsets, emits, s_pad)
+    """Owner recovery: the owner row of every output slot, from ``offsets``
+    (the exclusive prefix sum of non-negative counts) and ``total`` (their
+    sum, a device scalar): the row whose run holds the slot, and in the dead
+    tail the last row with a non-zero count. Returns int32, clamped to the
+    row range (monotone). The values of the JAX package's scatter-max +
+    cummax; :func:`kernels.owner_recovery` gives them."""
+    return kernels.owner_recovery(offsets, total, s_pad)
 
 
 def _sort_build(build_keys, build_valid):
@@ -216,7 +218,7 @@ def join_csr_impl(counts_w, starts_w, grouped, probe_keys, probe_valid,
     cnt = torch.where(in_window, cnt_i32, 0)
     offsets = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
     total = cnt.sum(dtype=torch.int64)
-    pidx = _owner_recovery(offsets, cnt > 0, s_pad)
+    pidx = _owner_recovery(offsets, total, s_pad)
     j = _iota(s_pad, dev)
     # pidx is monotone (cummax): the offsets/start lookups ride one
     # blocked-window pass; gpos jumps between probes, so the grouped
@@ -353,8 +355,7 @@ def _merge_owner_recovery(offsets, total, s_pad: int):
     ``owner[j]`` the sorted slot owning output j (monotone, int32), ``j``
     the output positions and ``live = j < total``."""
     total32 = total.to(torch.int32).reshape(1)
-    emits = torch.diff(offsets, append=total32) > 0
-    owner = _owner_recovery(offsets, emits, s_pad)
+    owner = _owner_recovery(offsets, total32, s_pad)
     j = _iota(s_pad, offsets.device)
     return owner, j, j < total32
 
@@ -453,9 +454,7 @@ def join_expand_impl(perm, lo, offsets, total, s_pad: int):
     in the ``s_pad`` bucket, dead rows zeroed.
 
     For output slot j the owning probe row is the last i with
-    ``offsets[i] <= j`` and a non-zero count: each emitting probe's id is
-    scattered at its output start and a running max fills its run
-    (:func:`_owner_recovery`). ``within = j - offsets[i]`` selects the
+    ``offsets[i] <= j`` and a non-zero count (:func:`_owner_recovery`). ``within = j - offsets[i]`` selects the
     duplicate and ``perm[lo[i] + within]`` is the original build row.
 
     The owner stream is monotone, so the ``offsets`` / ``lo`` lookups along
@@ -463,8 +462,7 @@ def join_expand_impl(perm, lo, offsets, total, s_pad: int):
     probes and takes the unwindowed route of :func:`gather_expand`."""
     pp = offsets.shape[0]
     total32 = total.to(torch.int32).reshape(1)
-    emits = torch.diff(offsets, append=total32) > 0
-    pidx = _owner_recovery(offsets, emits, s_pad)  # clamped to [0, pp)
+    pidx = _owner_recovery(offsets, total32, s_pad)  # clamped to [0, pp)
     j = _iota(s_pad, offsets.device)
     offs_g, lo_g = gather_expand_multi([offsets, lo], pidx, windowed=True)
     bpos = (lo_g + (j - offs_g)).clamp(0, perm.shape[0] - 1)

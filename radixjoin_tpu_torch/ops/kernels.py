@@ -17,7 +17,7 @@ slot and ``lax.cummax``), held to the JAX functions' values
 (``csrc/owner_recovery.cu``):
 
 * :func:`owner_recovery` — the owner row of every output slot of a join
-  expansion;
+  expansion, a merge-path search of the slots among the offsets;
 * :func:`cummax_i32` — the running max of an int32 stream (the merge
   join's run scans).
 
@@ -95,7 +95,7 @@ _SIGNATURES = {
                                 _I32, _I32, _VP],
     "rjt_resident_gather": [_I32, _I32, _I32, _VP, _I64, _VP, _VP, _I64,
                             _I32, _I32, _VP],
-    "rjt_owner_recovery": [_I32, _VP, _I32, _VP, _I64, _VP, _I64, _VP, _I64,
+    "rjt_owner_recovery": [_I32, _VP, _I32, _I64, _VP, _I32, _VP, _I64,
                            _I32, _VP],
     "rjt_cummax_i32": [_I32, _VP, _VP, _I64, _VP, _I64, _VP],
 }
@@ -723,6 +723,12 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # owner_recovery, cummax_i32
 # ---------------------------------------------------------------------------
 
+#: merge items (slots plus rows) one tile of ``owner_merge_kernel`` walks
+#: (kOwnTile in csrc/owner_recovery.cu)
+OWNER_TILE = 2044
+#: the most rows and slots :func:`owner_recovery` takes on the card: the
+#: kernel counts them in int32, a tile's staging span past them
+OWNER_MAX = 2 ** 31 - 1 - 2048
 #: values one block of ``max_scan_kernel`` scans (RJT_SCAN_TILE in
 #: csrc/owner_recovery.cu); the scratch holds a status word a tile and the
 #: tile counter
@@ -734,12 +740,26 @@ def _scan_scratch(n: int, device: torch.device) -> torch.Tensor:
                        device=device)
 
 
-def owner_recovery_plain(offsets: torch.Tensor, emits: torch.Tensor,
+def _check_total(total: torch.Tensor, device: torch.device, name: str) -> None:
+    if (total.dtype not in (torch.int32, torch.int64) or total.numel() != 1
+            or total.dim() > 1):
+        raise TypeError(f"{name}: total must be a one-element int32 or int64 "
+                        f"tensor, got {total.dtype} with shape "
+                        f"{tuple(total.shape)}")
+    if total.device != device:
+        raise ValueError(f"{name}: total on {total.device}, offsets on "
+                         f"{device}")
+
+
+def owner_recovery_plain(offsets: torch.Tensor, total: torch.Tensor,
                          s_pad: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`owner_recovery`: each emitting row's
-    id scatter-maxed at its output start, starts at or past ``s_pad`` into
-    a sentinel slot (JAX's ``mode="drop"``), a running max, the clamp."""
+    """Plain PyTorch version of :func:`owner_recovery`, the JAX package's
+    formulation: ``emits[i] = offsets[i + 1] > offsets[i]`` with
+    ``offsets[n] = total``, each emitting row's id scatter-maxed at its
+    output start, starts at or past ``s_pad`` into a sentinel slot (JAX's
+    ``mode="drop"``), a running max, the clamp."""
     n = offsets.shape[0]
+    emits = torch.diff(offsets, append=total.reshape(1).to(offsets.dtype)) > 0
     starts = torch.where(emits & (offsets < s_pad), offsets.long(), s_pad)
     marker = torch.full((s_pad + 1,), -1, dtype=torch.int32,
                         device=offsets.device)
@@ -749,46 +769,56 @@ def owner_recovery_plain(offsets: torch.Tensor, emits: torch.Tensor,
     return owner.clamp(0, n - 1)
 
 
-def owner_recovery(offsets: torch.Tensor, emits: torch.Tensor,
+def owner_recovery(offsets: torch.Tensor, total: torch.Tensor,
                    s_pad: int) -> torch.Tensor:
     """The owner of every output slot ``0 <= j < s_pad`` of a join
-    expansion: ``clamp(max{i : emits[i], offsets[i] <= j, offsets[i] <
-    s_pad}, 0, n - 1)`` (an empty max is -1), int32 and monotone. ``offsets``
-    is a 1-D int32 or int64 tensor of non-negative output starts, ``emits``
-    a bool tensor of the same length; ``s_pad`` is static.
+    expansion, int32 and monotone::
 
-    On the card: a fill, a scatter-max of the emitting rows only (nothing
-    for the others: no sentinel slot), and one decoupled look-back max-scan
-    with the clamp fused into its store, all on the current stream, with no
-    host sync."""
+        owner[j] = clamp(upper_bound(offsets, min(j, total - 1)) - 1, 0, n - 1)
+
+    (0 everywhere when ``total`` is 0; -1 when n is 0). ``offsets`` is the
+    1-D int32 or int64 exclusive prefix sum of n non-negative counts and
+    ``total`` (a one-element int32 or int64 tensor on the same device) their
+    sum; ``s_pad`` is static. Below ``min(total, s_pad)`` a slot's owner is
+    the row whose run holds it, in the dead tail the last row with a
+    non-zero count: the JAX package's scatter-max + cummax with
+    ``emits[i] = offsets[i + 1] > offsets[i]`` (``offsets[n] = total``).
+
+    Precondition: ``offsets`` is such a prefix sum (non-decreasing, from 0)
+    and ``total`` its end. The wrapper cannot check that on the card without
+    a host sync, so it does not; every caller in the package forms
+    ``offsets`` as ``cumsum(counts) - counts`` and ``total`` as their sum.
+    Offsets that break it (an int32 cumsum that wrapped, before the
+    caller's overflow check) give unspecified owners, and the kernel still
+    reads and writes only inside its buffers.
+
+    On the card: one launch on the current stream (a merge-path partition
+    of the slots and the offsets, ``csrc/owner_recovery.cu``), no memset,
+    no atomics, no host sync. At most :data:`OWNER_MAX` rows and slots."""
     name = "owner_recovery"
     if offsets.dtype not in (torch.int32, torch.int64) or offsets.dim() != 1:
         raise TypeError(f"{name}: offsets must be a 1-D int32 or int64 tensor")
-    if emits.dtype != torch.bool or emits.shape != offsets.shape:
-        raise TypeError(f"{name}: emits must be a bool tensor of the offsets' "
-                        "shape")
-    if emits.device != offsets.device:
-        raise ValueError(f"{name}: emits on {emits.device}, offsets on "
-                         f"{offsets.device}")
-    if not (offsets.is_contiguous() and emits.is_contiguous()):
-        raise ValueError(f"{name}: offsets and emits must be contiguous")
+    device = offsets.device
+    _check_total(total, device, name)
+    if not offsets.is_contiguous():
+        raise ValueError(f"{name}: offsets must be contiguous")
     s_pad = int(s_pad)
     if s_pad < 0:
         raise ValueError(f"{name}: s_pad must be >= 0, got {s_pad}")
-    device = offsets.device
     if device.type == "cpu":
-        return owner_recovery_plain(offsets, emits, s_pad)
+        return owner_recovery_plain(offsets, total, s_pad)
     _cuda_or_raise(device, name)
+    if max(s_pad, offsets.shape[0]) > OWNER_MAX:
+        raise ValueError(f"{name}: at most {OWNER_MAX} rows and slots on the "
+                         "card")
     lib = build()
     out = torch.empty(s_pad, dtype=torch.int32, device=device)
     if s_pad == 0:
         return out
-    scratch = _scan_scratch(s_pad, device)
     rc = lib.rjt_owner_recovery(
         _index(device), offsets.data_ptr(), int(offsets.dtype == torch.int64),
-        emits.data_ptr(), offsets.shape[0], out.data_ptr(), s_pad,
-        scratch.data_ptr(), scratch.shape[0], _device_limits(device)[0],
-        _stream(device),
+        offsets.shape[0], total.data_ptr(), int(total.dtype == torch.int64),
+        out.data_ptr(), s_pad, _device_limits(device)[0], _stream(device),
     )
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

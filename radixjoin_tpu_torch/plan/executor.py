@@ -130,13 +130,13 @@ def _gather_cols(cols, idx, live, windowed: bool = False):
 
 def _compact_probe_shaped(cols, live, out_pad: int):
     """Compact live rows to the front of an ``out_pad`` bucket (the same
-    scatter-max owner recovery as the join expansion, counts in {0, 1}).
+    owner recovery as the join expansion, counts in {0, 1}).
     A live row past ``out_pad`` is dropped; the caller detects that from
     the join's exact total."""
     counts = live.to(torch.int64)
     offsets = torch.cumsum(counts, 0) - counts
     total = counts.sum()
-    src = join_ops._owner_recovery(offsets, live, out_pad)
+    src = join_ops._owner_recovery(offsets, total, out_pad)
     live_out = torch.arange(out_pad, device=live.device) < total
     return _gather_cols(cols, src, live_out)
 

@@ -1168,22 +1168,31 @@ def test_precompile_then_threads_under_a_one_query_budget_on_card(
 _OWNER_SIZES = [1, 1027, 1 << 20, 1 << 23]
 
 
+def _prefix(dev, counts, dtype, total_dtype=torch.int64):
+    """``(offsets, total)`` of non-negative ``counts`` (a numpy array) on
+    ``dev``: the exclusive prefix sum as ``dtype`` and the sum as a
+    one-element ``total_dtype`` tensor, as the join expansions form them."""
+    counts = np.asarray(counts, dtype=np.int64)
+    offsets = np.cumsum(counts) - counts
+    return (torch.from_numpy(offsets.astype(dtype)).to(dev),
+            torch.tensor([int(counts.sum())], dtype=total_dtype, device=dev))
+
+
 def _owner_inputs(dev, n, dtype, pad, seed=0):
-    """Offsets and emits of an expansion over ``n`` rows with counts in
-    {0, 1, 2, 5}, and the pad below, at or above their total."""
+    """Offsets and total of an expansion over ``n`` rows with counts in
+    {0, 1, 2, 5}, and the pad below, at or above the total."""
     rng = np.random.default_rng([n, seed])
     counts = rng.choice(np.array([0, 1, 2, 5]), n)
-    offsets = np.cumsum(counts) - counts
-    total = int(counts.sum())
-    s_pad = {"below": max(total // 2, 1), "at": max(total, 1),
-             "above": total + 3 * kernels.SCAN_TILE + 7}[pad]
-    return (torch.from_numpy(offsets.astype(dtype)).to(dev),
-            torch.from_numpy(counts > 0).to(dev), s_pad)
+    offsets, total = _prefix(dev, counts, dtype)
+    t = int(counts.sum())
+    s_pad = {"below": max(t // 2, 1), "at": max(t, 1),
+             "above": t + 3 * kernels.OWNER_TILE + 7}[pad]
+    return offsets, total, s_pad
 
 
-def _owner_both(offsets, emits, s_pad):
-    got = kernels.owner_recovery(offsets, emits, s_pad)
-    want = kernels.owner_recovery_plain(offsets, emits, s_pad)
+def _owner_both(offsets, total, s_pad):
+    got = kernels.owner_recovery(offsets, total, s_pad)
+    want = kernels.owner_recovery_plain(offsets, total, s_pad)
     torch.cuda.synchronize()
     return got, want
 
@@ -1193,37 +1202,107 @@ def _owner_both(offsets, emits, s_pad):
 @pytest.mark.parametrize("pad", ["below", "at", "above"])
 @pytest.mark.parametrize("n", _OWNER_SIZES)
 def test_cuda_owner_recovery_matches_plain(cuda_device, n, pad, dtype):
-    offsets, emits, s_pad = _owner_inputs(cuda_device, n, dtype, pad)
+    offsets, total, s_pad = _owner_inputs(cuda_device, n, dtype, pad)
     kernels.reset_launch_counts()
-    got, want = _owner_both(offsets, emits, s_pad)
+    got, want = _owner_both(offsets, total, s_pad)
     assert kernels.launch_counts()["owner_recovery"] == 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("n", _OWNER_SIZES)
 def test_cuda_owner_recovery_edges(cuda_device, n, dtype):
     dev = cuda_device
-    gen = torch.Generator(device=dev).manual_seed(n)
-    zeros = torch.zeros(n, dtype=dtype, device=dev)
-    # no emitter; every row emitting
-    for emits, offsets, s_pad in (
-            (torch.zeros(n, dtype=torch.bool, device=dev), zeros, 5000),
-            (torch.ones(n, dtype=torch.bool, device=dev),
-             torch.arange(n, dtype=dtype, device=dev), n + 4097)):
-        got, want = _owner_both(offsets, emits, s_pad)
-        assert torch.equal(got, want)
-    # starts that are no prefix sum, flags drawn on their own, starts past
-    # the pad; then the same through views one element off their start (the
-    # scatter's scalar route)
-    s_pad = max(n // 2, 1)
-    pool = torch.randint(0, 2 * s_pad, (n + 1,), generator=gen, device=dev,
-                         dtype=dtype)
-    flags = torch.rand(n + 1, generator=gen, device=dev) < 0.4
-    for offsets, emits in ((pool[:n], flags[:n]), (pool[1:], flags[1:])):
-        got, want = _owner_both(offsets, emits, s_pad)
-        assert torch.equal(got, want)
+    rng = np.random.default_rng(n)
+    tile = kernels.OWNER_TILE
+    cases = [
+        ("no emitter", np.zeros(n, np.int64), 5000),
+        ("every row emitting", np.ones(n, np.int64), n + 4097),
+    ]
+    counts = rng.integers(0, 4, n)
+    zeros = np.zeros(5000, np.int64)
+    for where, c in (("head", np.concatenate([zeros, counts])),
+                     ("middle", np.concatenate([counts[:n // 2], zeros,
+                                                counts[n // 2:]])),
+                     ("tail", np.concatenate([counts, zeros]))):
+        t = int(c.sum())
+        cases += [(f"zero run at the {where}", c, max(t, 1)),
+                  (f"zero run at the {where}, pad above", c, t + 2 * tile)]
+    big = counts.copy()
+    big[n // 2] = 3 * tile  # one row's run spans three tiles
+    t = int(big.sum())
+    cases += [("one row over three tiles", big, t + 5),
+              ("a pad one below the total", big, t - 1)]
+    for label, c, s_pad in cases:
+        for total_dtype in (torch.int32, torch.int64):
+            offsets, total = _prefix(dev, c, dtype, total_dtype)
+            got, want = _owner_both(offsets, total, s_pad)
+            assert torch.equal(got, want), (label, total_dtype)
+    # the same through views one element off their start (the scalar route
+    # of the staging): a prefix sum that starts at 0 one element in
+    c = np.concatenate([[0], rng.integers(0, 4, n)])
+    pool, total = _prefix(dev, c, dtype)  # pool[1] is 0
+    view = pool[1:]
+    for s_pad in (max(int(c.sum()), 1), int(c.sum()) + 2 * tile):
+        got, want = _owner_both(view, total, s_pad)
+        assert view.data_ptr() % 16 != 0 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_owner_recovery_with_no_rows_or_no_total(cuda_device):
+    dev = cuda_device
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    got, want = _owner_both(empty, torch.zeros(1, dtype=torch.int64,
+                                               device=dev), 9000)
+    assert torch.equal(got, want) and (got == -1).all()
+    offsets, total = _prefix(dev, np.zeros(3 * kernels.OWNER_TILE), np.int64)
+    got, want = _owner_both(offsets, total, 2 * kernels.OWNER_TILE + 1)
+    assert torch.equal(got, want) and (got == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("total_dtype", [torch.int32, torch.int64])
+def test_cuda_owner_recovery_survives_a_wrapped_int32_prefix_sum(
+        cuda_device, total_dtype):
+    # counts summing past 2^31 through an int32 cumsum, as a skewed join
+    # would give its expansion before the overflow check: the owners are
+    # unspecified, but the call must fault nothing and leave the context
+    # working
+    dev = cuda_device
+    rng = np.random.default_rng(7)
+    counts = rng.integers(0, 1 << 13, 1 << 20)  # about 2^32 in all
+    offsets = torch.from_numpy(
+        (np.cumsum(counts) - counts).astype(np.int64).astype(np.int32)).to(dev)
+    assert bool((offsets < 0).any())
+    total = torch.tensor([int(counts.sum())], dtype=torch.int64, device=dev)
+    total = total.to(total_dtype)  # int32: the wrapped total
+    for s_pad in (1 << 22, 3 * kernels.OWNER_TILE + 5):
+        got = kernels.owner_recovery(offsets, total, s_pad)
+        torch.cuda.synchronize()
+        assert got.shape == (s_pad,) and got.dtype == torch.int32
+    offsets, total, s_pad = _owner_inputs(dev, 1 << 20, np.int32, "at")
+    got, want = _owner_both(offsets, total, s_pad)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_owner_recovery_is_one_launch_and_no_memset(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    offsets, total, s_pad = _owner_inputs(cuda_device, 1 << 20, np.int32,
+                                          "above")
+    kernels.owner_recovery(offsets, total, s_pad)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernels.owner_recovery(offsets, total, s_pad)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not any("memset" in k.lower() for k in names), names
+    assert [k for k in names if "owner_merge_kernel" in k] == names, names
+    assert len(names) == 1, names
 
 
 @pytest.mark.cuda
@@ -1244,17 +1323,33 @@ def test_cuda_cummax_i32_matches_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
+def test_cuda_cummax_i32_over_many_calls_on_a_side_stream(cuda_device):
+    # calls of every tile count back to back, each with its own scratch
+    side = torch.cuda.Stream(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        for n in [1, 3, kernels.SCAN_TILE, 2 * kernels.SCAN_TILE + 1,
+                  3 * kernels.SCAN_TILE, 1 << 20, 5, 1 << 20] * 8:
+            x = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                              device=cuda_device, dtype=torch.int32)
+            assert torch.equal(kernels.cummax_i32(x),
+                               kernels.cummax_i32_plain(x)), n
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_owner_kernels_on_a_side_stream(cuda_device):
-    offsets, emits, s_pad = _owner_inputs(cuda_device, 1 << 23, np.int32,
+    offsets, total, s_pad = _owner_inputs(cuda_device, 1 << 23, np.int32,
                                           "at", seed=1)
     x = torch.randint(-(1 << 31), 1 << 31, (1 << 23,), device=cuda_device,
                       dtype=torch.int32)
-    want = (kernels.owner_recovery_plain(offsets, emits, s_pad),
+    want = (kernels.owner_recovery_plain(offsets, total, s_pad),
             kernels.cummax_i32_plain(x))
     side = torch.cuda.Stream(cuda_device)
     side.wait_stream(torch.cuda.current_stream(cuda_device))
     with torch.cuda.stream(side):
-        got = (kernels.owner_recovery(offsets, emits, s_pad),
+        got = (kernels.owner_recovery(offsets, total, s_pad),
                kernels.cummax_i32(x))
     torch.cuda.current_stream(cuda_device).wait_stream(side)
     torch.cuda.synchronize()
@@ -1263,18 +1358,19 @@ def test_cuda_owner_kernels_on_a_side_stream(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_owner_kernels_make_no_host_sync(cuda_device):
-    offsets, emits, s_pad = _owner_inputs(cuda_device, 1 << 20, np.int64,
+    offsets, total, s_pad = _owner_inputs(cuda_device, 1 << 20, np.int64,
                                           "above")
     x = offsets.to(torch.int32)
-    kernels.owner_recovery(offsets, emits, s_pad)  # built before the check
+    kernels.owner_recovery(offsets, total, s_pad)  # built before the check
+    kernels.cummax_i32(x)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = (kernels.owner_recovery(offsets, emits, s_pad),
+        got = (kernels.owner_recovery(offsets, total, s_pad),
                kernels.cummax_i32(x))
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert torch.equal(got[0], kernels.owner_recovery_plain(offsets, emits,
+    assert torch.equal(got[0], kernels.owner_recovery_plain(offsets, total,
                                                             s_pad))
     assert torch.equal(got[1], kernels.cummax_i32_plain(x))
 
@@ -1282,26 +1378,28 @@ def test_cuda_owner_kernels_make_no_host_sync(cuda_device):
 @pytest.mark.cuda
 def test_cuda_owner_kernels_under_graph_capture(cuda_device):
     n = 1 << 20
-    offsets, emits, s_pad = _owner_inputs(cuda_device, n, np.int32, "at")
+    offsets, total, s_pad = _owner_inputs(cuda_device, n, np.int32, "at")
     x = offsets.clone()
     for _ in range(2):  # built, and the card's limits read, before capture
-        kernels.owner_recovery(offsets, emits, s_pad)
+        kernels.owner_recovery(offsets, total, s_pad)
         kernels.cummax_i32(x)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        owner = kernels.owner_recovery(offsets, emits, s_pad)
+        owner = kernels.owner_recovery(offsets, total, s_pad)
         run_max = kernels.cummax_i32(x)
-    for seed in (2, 3):
-        o2, e2, _s = _owner_inputs(cuda_device, n, np.int32, "at", seed=seed)
+    for seed in (2, 3, 4):
+        o2, t2, _s = _owner_inputs(cuda_device, n, np.int32, "at", seed=seed)
         offsets.copy_(o2)
-        emits.copy_(e2)
+        total.copy_(t2)
         x.copy_(torch.flip(o2, (0,)))
         graph.replay()
         torch.cuda.synchronize()
-        assert torch.equal(owner, kernels.owner_recovery_plain(offsets, emits,
+        assert torch.equal(owner, kernels.owner_recovery_plain(offsets, total,
                                                                s_pad))
         assert torch.equal(run_max, kernels.cummax_i32_plain(x))
+        # an eager call between replays on the same scratch
+        assert torch.equal(kernels.cummax_i32(x), run_max)
 
 
 @pytest.mark.cuda
@@ -1312,8 +1410,8 @@ def test_cuda_owner_wrappers_raise_when_the_library_is_unbuilt(
     monkeypatch.setattr(kernels, "_CSRC", str(tmp_path / "csrc"))
     monkeypatch.setattr(kernels, "_BUILD_DIR", str(tmp_path / "build"))
     offsets = torch.zeros(8, dtype=torch.int32, device=cuda_device)
-    emits = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    total = torch.zeros(1, dtype=torch.int64, device=cuda_device)
     with pytest.raises(RuntimeError):
-        kernels.owner_recovery(offsets, emits, 16)
+        kernels.owner_recovery(offsets, total, 16)
     with pytest.raises(RuntimeError):
         kernels.cummax_i32(offsets)
