@@ -38,8 +38,13 @@ keyed by a hash of the source and the shared header) and called through
 Every wrapper checks its arguments the same way on every device. It then
 takes the plain PyTorch version for tensors on the CPU, and only there;
 for CUDA tensors it launches its kernel or raises. Each wrapper counts its
-kernel launches in its ``launches`` attribute (see :func:`launch_counts`),
-under a lock, and for the launching thread (:func:`thread_launch_counts`).
+kernel launches (``kernel.<wrapper>.launches`` in the trace registry, read
+by :func:`launch_counts`), and for the launching thread
+(:func:`thread_launch_counts`). While tracing is on, a call that launches
+also counts its least bytes (``kernel.<wrapper>.least_bytes``): each
+input read once and each output written once, from the call's shapes
+(:func:`least_bytes`; the blocked gather's table reads, which depend on
+the values, left out).
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ import types
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+from .. import trace
 
 #: largest table the join engine routes to :func:`window_gather`
 WINDOW_GATHER_MAX = 4096
@@ -181,35 +188,79 @@ def build():
         return lib
 
 
-#: launches are counted under one lock (threads launch concurrently, and
-#: ``fn.launches += 1`` is a read, an add and a write), for the process and
-#: for the launching thread
-_count_lock = threading.Lock()
+#: launches and least bytes per wrapper: ``<wrapper>.launches``,
+#: ``<wrapper>.least_bytes``
+KERNEL_STATS = trace.Counters("kernel")
+#: launches by the launching thread
 _thread_counts = threading.local()
 
 
 def _count_launch(fn) -> None:
     """Count one launch of ``fn``'s kernel: called by the wrappers where
     they launch, and nowhere else."""
-    with _count_lock:
-        fn.launches += 1
+    KERNEL_STATS.add(f"{fn.__name__}.launches")
     counts = getattr(_thread_counts, "counts", None)
     if counts is None:
         counts = _thread_counts.counts = {}
     counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
 
 
+def _count_least_bytes(fn, *args) -> None:
+    """Count the least bytes of one call of ``fn`` that launched (``args``
+    as :func:`least_bytes` takes them). The wrappers call it only while
+    tracing is on."""
+    KERNEL_STATS.add(f"{fn.__name__}.least_bytes",
+                     least_bytes(fn.__name__, *args))
+
+
+def least_bytes(name: str, *args) -> int:
+    """The least bytes one call of the wrapper ``name`` moves: each input
+    read once, each output written once (the rule of the port's kernel
+    table). Arguments: ``window_gather`` and
+    ``blocked_window_gather_multi`` ``(tables, idx)`` (the second also
+    ``with_ok``; its table reads depend on the values and are left out, so
+    this is a lower bound), ``paged_window_gather`` ``(body, idx)``,
+    ``owner_recovery`` ``(offsets, total, s_pad)``, ``cummax_i32``
+    ``(x,)``, the resident gathers and ``onehot_gather`` ``(table,
+    idx)``."""
+    if name == "window_gather":
+        tables, idx = args
+        n, w = idx.numel(), tables[0].shape[0]
+        return (n * idx.element_size()
+                + (n + w) * sum(t.element_size() for t in tables))
+    if name == "blocked_window_gather_multi":
+        tables, idx, with_ok = args
+        return idx.numel() * (idx.element_size()
+                              + sum(t.element_size() for t in tables)
+                              + (4 if with_ok else 0))
+    if name == "paged_window_gather":
+        body, idx = args
+        return (body.numel() * body.element_size()
+                + 2 * idx.numel() * idx.element_size())
+    if name == "owner_recovery":
+        offsets, total, s_pad = args
+        return (offsets.numel() * offsets.element_size()
+                + total.numel() * total.element_size() + 4 * s_pad)
+    if name == "cummax_i32":
+        (x,) = args
+        return 2 * x.numel() * x.element_size()
+    if name in ("pallas_gather", "gather_pallas_vmem", "mk_gather",
+                "onehot_gather"):
+        table, idx = args
+        return 4 * table.numel() + 2 * 4 * idx.numel()
+    raise ValueError(f"least_bytes: unknown wrapper {name!r}")
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches per wrapper in this process since the last
     :func:`reset_launch_counts`."""
-    with _count_lock:
-        return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    counts = KERNEL_STATS.snapshot()
+    return {fn.__name__: counts.get(f"{fn.__name__}.launches", 0)
+            for fn in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    with _count_lock:
-        for fn in _WRAPPERS:
-            fn.launches = 0
+    KERNEL_STATS.reset([f"{fn.__name__}.launches" for fn in _WRAPPERS])
 
 
 def thread_launch_counts() -> Dict[str, int]:
@@ -367,6 +418,8 @@ def window_gather(tables, idx: torch.Tensor) -> List[torch.Tensor]:
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
         _count_launch(window_gather)
+    if trace.ON:
+        _count_least_bytes(window_gather, tables, idx)
     return outs
 
 
@@ -458,6 +511,8 @@ def blocked_window_gather_multi(tables, idx: torch.Tensor,
             raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
         _count_launch(blocked_window_gather_multi)
         ok_ptr = None
+    if trace.ON:
+        _count_least_bytes(blocked_window_gather_multi, tables, idx, with_ok)
     return outs, ok
 
 
@@ -509,6 +564,8 @@ def paged_window_gather(body: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     _count_launch(paged_window_gather)
+    if trace.ON:
+        _count_least_bytes(paged_window_gather, body, idx)
     return out
 
 
@@ -583,6 +640,8 @@ def _launch_resident(fn, mode: str, use_smem: bool, table: torch.Tensor,
         raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error "
                            f"{rc}")
     _count_launch(fn)
+    if trace.ON:
+        _count_least_bytes(fn, table, idx)
     return out
 
 
@@ -823,6 +882,8 @@ def owner_recovery(offsets: torch.Tensor, total: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     _count_launch(owner_recovery)
+    if trace.ON:
+        _count_least_bytes(owner_recovery, offsets, total, s_pad)
     return out
 
 
@@ -853,6 +914,8 @@ def cummax_i32(x: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     _count_launch(cummax_i32)
+    if trace.ON:
+        _count_least_bytes(cummax_i32, x)
     return out
 
 

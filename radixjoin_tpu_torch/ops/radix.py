@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import hardware
+from .. import hardware, trace
 from . import join as join_ops
 from .hashing import murmur64, murmur64_np
 
@@ -162,6 +162,7 @@ def partitioned_join_indices(
     num_partitions: Optional[int] = None,
     budget_bytes: Optional[int] = None,
     device=None,
+    fetch=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact inner equi-join streamed partition pair by partition pair
     through ``device`` (the CUDA card by default).
@@ -172,7 +173,11 @@ def partitioned_join_indices(
     :func:`~radixjoin_tpu_torch.ops.join.join_count_and_index`; the upload
     of pair p+1 is under way while pair p computes. Rows with equal keys
     land in the same partition on both sides, so concatenating the
-    per-pair outputs is the exact global join."""
+    per-pair outputs is the exact global join.
+
+    ``fetch`` brings a pair's two index tensors to the host as numpy
+    arrays (the engine's spill route passes one that times and counts its
+    fetches); each pair's upload is traced as an ``upload`` span."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -192,12 +197,21 @@ def partitioned_join_indices(
     copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
                    else None)
 
+    if fetch is None:
+        fetch = _fetch
+
     def upload(p):
         bk, bv, pk, pv = bparts[0][p], bparts[1][p], pparts[0][p], pparts[1][p]
         bpad = join_ops.bucket_size(len(bk))
         ppad = join_ops.bucket_size(len(pk))
-        return _PairUpload((bk, bv, pk, pv), (bpad, bpad, ppad, ppad),
-                           device, copy_stream)
+        with trace.span("upload") as sp:
+            staged = _PairUpload((bk, bv, pk, pv), (bpad, bpad, ppad, ppad),
+                                 device, copy_stream)
+            if trace.ON:
+                sp.note("kind", "pair")
+                sp.note("bytes", sum(t.numel() * t.element_size()
+                                     for t in staged._dev))
+        return staged
 
     out_b: List[np.ndarray] = []
     out_p: List[np.ndarray] = []
@@ -210,13 +224,18 @@ def partitioned_join_indices(
         if total == 0:
             continue
         # live rows are exactly the first ``total`` output slots
-        out_b.append(bparts[3][p][bidx[:total].cpu().numpy()])
-        out_p.append(pparts[3][p][pidx[:total].cpu().numpy()])
+        fb, fp = fetch([bidx[:total], pidx[:total]])
+        out_b.append(bparts[3][p][fb])
+        out_p.append(pparts[3][p][fp])
 
     if not out_b:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     return (np.concatenate(out_b).astype(np.int64),
             np.concatenate(out_p).astype(np.int64))
+
+
+def _fetch(tensors) -> List[np.ndarray]:
+    return [t.cpu().numpy() for t in tensors]
 
 
 def partitioned_join(

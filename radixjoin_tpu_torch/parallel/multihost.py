@@ -26,20 +26,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from .mesh import Mesh
 
 #: per process: collective calls, the bytes this rank sent in them, and the
 #: host round trips of :func:`to_host`
-COLLECTIVE_STATS = {"calls": 0, "bytes": 0, "host_syncs": 0}
+COLLECTIVE_STATS = trace.Counters("collective",
+                                  ("calls", "bytes", "host_syncs"))
 
 
 def collective_stats() -> dict:
-    return dict(COLLECTIVE_STATS)
+    return COLLECTIVE_STATS.snapshot()
 
 
 def reset_collective_stats() -> None:
-    for k in COLLECTIVE_STATS:
-        COLLECTIVE_STATS[k] = 0
+    COLLECTIVE_STATS.reset()
 
 
 def init(coordinator: str, num_processes: int, process_id: int,
@@ -96,8 +97,8 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 
 def _count(t: torch.Tensor) -> None:
-    COLLECTIVE_STATS["calls"] += 1
-    COLLECTIVE_STATS["bytes"] += t.numel() * t.element_size()
+    COLLECTIVE_STATS.add("calls")
+    COLLECTIVE_STATS.add("bytes", t.numel() * t.element_size())
 
 
 def all_to_all(buf: torch.Tensor, mesh: Mesh, async_op: bool = False):
@@ -168,7 +169,7 @@ def put_replicated(array: np.ndarray, mesh: Mesh) -> torch.Tensor:
 def to_host(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[np.ndarray]:
     """One host transfer for the whole batch: on the card every copy starts
     (into pinned memory) before the one synchronisation."""
-    COLLECTIVE_STATS["host_syncs"] += 1
+    COLLECTIVE_STATS.add("host_syncs")
     if mesh.device.type != "cuda":
         return [t.numpy() for t in tensors]
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

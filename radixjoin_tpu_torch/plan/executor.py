@@ -42,7 +42,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import hardware
+from .. import hardware, trace
 from ..dtypes import DataType
 from ..ops import join as join_ops
 from ..ops import kernels
@@ -303,10 +303,17 @@ def _memo_key_device(key) -> torch.device:
     return key[1] if key[0] == "csr" else key[0]
 
 
-def _cached_upload(eng, owner, key, device, make):
+#: the upload memos: ``memo_hits``, ``memo_misses`` (each an upload) and
+#: the ``bytes`` uploaded
+UPLOAD_STATS = trace.Counters("upload", ("memo_hits", "memo_misses", "bytes"))
+
+
+def _cached_upload(eng, owner, key, device, make, kind: str):
     """The upload memos' shared protocol. ``make()`` uploads and returns
     ``(value, nbytes)``; the value is kept in ``owner``'s memo under ``key``
-    and its bytes are charged to ``device``'s ledger.
+    and its bytes are charged to ``device``'s ledger. Hits and misses are
+    counted (:data:`UPLOAD_STATS`), and a miss is traced as an ``upload``
+    span (``kind``: ``column``, ``paged`` or ``csr``; its bytes).
 
     A memo hit counts only if ``touch`` confirms the ledger entry is live:
     touch token-protects it against eviction through the caller's query,
@@ -326,19 +333,27 @@ def _cached_upload(eng, owner, key, device, make):
     # the second read: between the first and the touch another thread may
     # have evicted the entry and uploaded it again under a new value
     if value is not None and ledger.touch(owner) and memo.get(key) is value:
+        UPLOAD_STATS.add("memo_hits")
         return value
     release = eng.column_cache_release(device)
     with _owner_lock(owner):
         ledger.charge(owner, 0, release)
         value = memo.get(key)
         if value is not None:
+            UPLOAD_STATS.add("memo_hits")
             return value
-        value, nbytes = make()
-        if value is not None:
-            if device.type == "cuda":
-                torch.cuda.current_stream(device).synchronize()
-            memo[key] = value
-            ledger.charge(owner, nbytes, release)
+        UPLOAD_STATS.add("memo_misses")
+        with trace.span("upload") as sp:
+            value, nbytes = make()
+            if value is not None:
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+                memo[key] = value
+                ledger.charge(owner, nbytes, release)
+                UPLOAD_STATS.add("bytes", nbytes)
+            if trace.ON:
+                sp.note("kind", kind)
+                sp.note("bytes", nbytes)
     return value
 
 
@@ -352,7 +367,7 @@ def _device_column_cached(eng, hcol, pad: int, device):
         dev = eng.host_column_to_device(hcol, pad, device)
         return dev, _dev_col_bytes(dev)
 
-    return _cached_upload(eng, hcol, (device, pad), device, make)
+    return _cached_upload(eng, hcol, (device, pad), device, make, "column")
 
 
 def _paged_column_cached(eng, pcol, num_rows: int, pad: int, device):
@@ -375,7 +390,7 @@ def _paged_column_cached(eng, pcol, num_rows: int, pad: int, device):
             return None, 0
         return dev, _dev_col_bytes(dev)
 
-    return _cached_upload(eng, pcol, (device, pad), device, make)
+    return _cached_upload(eng, pcol, (device, pad), device, make, "paged")
 
 
 def _csr_device(hcol, device) -> Optional[tuple]:
@@ -395,7 +410,7 @@ def _csr_device(hcol, device) -> Optional[tuple]:
         return (idx[0],) + arrays, sum(
             a.numel() * a.element_size() for a in arrays)
 
-    value = _cached_upload(eng, hcol, ("csr", device), device, make)
+    value = _cached_upload(eng, hcol, ("csr", device), device, make, "csr")
     return None if value == (None,) else value
 
 
@@ -481,46 +496,38 @@ def _mask_cols(cols, mask):
 
 
 # Join-path observability: which function family each executed join of the
-# wave executor took, counted per process.
-PATH_STATS: Dict[str, int] = {}
+# wave executor took, counted per process (the fused executor counts its
+# strategies under ``join``, plan/fused.py).
+PATH_STATS = trace.Counters("path")
 
 # Host syncs and shrinks of the wave executor, counted per process:
 # ``shrink_syncs`` (a wave's totals fetched mid-plan), ``totals_fetches``
 # (the fetch of the remaining totals at the root, one per attempt),
 # ``root_fetches``, and how nodes shrank (``shrink_slices`` for compacted
 # nodes, ``shrink_compactions`` for probe-shaped ones).
-SYNC_STATS: Dict[str, int] = {
-    "shrink_syncs": 0, "totals_fetches": 0, "root_fetches": 0,
-    "shrink_slices": 0, "shrink_compactions": 0, "redispatches": 0,
-}
-
-
-#: both tallies are updated from every thread that executes a plan
-_STATS_LOCK = threading.Lock()
+SYNC_STATS = trace.Counters("sync", (
+    "shrink_syncs", "totals_fetches", "root_fetches", "shrink_slices",
+    "shrink_compactions", "redispatches"))
 
 
 def _count_path(name: str) -> None:
-    with _STATS_LOCK:
-        PATH_STATS[name] = PATH_STATS.get(name, 0) + 1
+    PATH_STATS.add(name)
 
 
 def _count_sync(name: str, n: int = 1) -> None:
-    with _STATS_LOCK:
-        SYNC_STATS[name] += n
+    SYNC_STATS.add(name, n)
 
 
 def path_stats() -> Dict[str, int]:
     """Snapshot of join-path counts: unique_scatter / unique_sort /
     general_csr[_swapped] / dev_csr[_swapped] / general_merge[why] /
     empty_type_mismatch."""
-    with _STATS_LOCK:
-        return dict(PATH_STATS)
+    return PATH_STATS.snapshot()
 
 
 def sync_stats() -> Dict[str, int]:
     """Snapshot of :data:`SYNC_STATS`."""
-    with _STATS_LOCK:
-        return dict(SYNC_STATS)
+    return SYNC_STATS.snapshot()
 
 
 # ---------------------------------------------------------------------------
@@ -621,7 +628,8 @@ def run_plan(plan: Plan, unique_joins: frozenset, device,
     recomputes, so results stay exact.
 
     ``stats``, when given, receives this run's ``shrink_syncs``, fetch
-    ``rounds`` and ``fetch_ms``. Returns ``(root_result, totals_by_node)``.
+    ``rounds`` and ``fetch_ms``; each fetch is traced as a ``fetch`` span
+    on the same stamps. Returns ``(root_result, totals_by_node)``.
     """
     from .. import engine as eng
 
@@ -640,12 +648,14 @@ def run_plan(plan: Plan, unique_joins: frozenset, device,
         device-to-host copy (the device scalars are stacked first)."""
         if not ids:
             return []
-        t0 = time.perf_counter()
-        (totals,) = eng._fetch(
+        t0 = time.time_ns()
+        fetched = eng._fetch(
             [torch.stack([results[i].total_dev for i in ids])])
-        stats["fetch_ms"] += (time.perf_counter() - t0) * 1e3
+        t1 = time.time_ns()
+        stats["fetch_ms"] += (t1 - t0) / 1e6
         stats["rounds"] += 1
-        return [int(t) for t in totals]
+        eng._fetched("totals", fetched, t0, t1)
+        return [int(t) for t in fetched[0]]
 
     buckets: Dict[int, int] = {}
     order = plan.topo_order()
@@ -933,9 +943,12 @@ def _run_join(eng, plan: Plan, idx: int, node, results, buckets,
 # ---------------------------------------------------------------------------
 
 
-def fetch_root(plan: Plan, root: _NodeResult, totals_by_node: Dict[int, int]):
+def fetch_root(plan: Plan, root: _NodeResult, totals_by_node: Dict[int, int],
+               stats: Optional[dict] = None):
     """Root columns -> HostTable: exactly the live rows cross to the host,
-    in one fetch."""
+    in one fetch. ``stats``, when given, receives the fetch's ``fetch_ms``
+    (added) and ``decode_ms``; the same stamps bound the ``fetch`` and
+    ``decode`` spans."""
     from .. import engine as eng
     from ..storage.columnar import HostTable
 
@@ -949,13 +962,21 @@ def fetch_root(plan: Plan, root: _NodeResult, totals_by_node: Dict[int, int]):
     # the unique fast path) and scans are dense, so rows [0:total) are it
     _count_sync("root_fetches")
     k = len(root.cols)
+    t0 = time.time_ns()
     fetched = eng._fetch([d[:total] for d, _ in root.cols]
                          + [v[:total] for _, v in root.cols])
+    t1 = time.time_ns()
+    decode = eng._fetched("root", fetched, t0, t1)
     cols = [
         _np_column_to_host(dt, data, valid, d)
         for (_ci, dt), data, valid, d in zip(
             root_node.output_attrs, fetched[:k], fetched[k:], root.dicts)
     ]
+    t2 = time.time_ns()
+    trace.close(decode, t2)
+    if stats is not None:
+        stats["fetch_ms"] = stats.get("fetch_ms", 0.0) + (t1 - t0) / 1e6
+        stats["decode_ms"] = (t2 - t1) / 1e6
     return HostTable(total, cols)
 
 
@@ -969,18 +990,19 @@ def _np_column_to_host(dt, data, valid, dictionary):
 def execute_shared(plan: Plan, unique_joins: frozenset, device):
     """Full wave execution on ``device``: returns a HostTable. Leaves the
     per-join totals on the plan as ``_last_join_totals`` and a stage
-    breakdown as ``_last_exec_stats``: dispatch, fetch and decode
-    milliseconds on the host clock, fetch ``rounds`` (the root's included)
-    and ``shrink_syncs``."""
+    breakdown as ``_last_exec_stats``, as the fused executor does:
+    dispatch, fetch (the root's included) and decode milliseconds on the
+    host clock, fetch ``rounds`` (the root's included), and
+    ``shrink_syncs``. Traced as ``wave.dispatch`` (its totals fetches
+    beneath it), then the root's ``fetch`` and ``decode``."""
     stats: dict = {}
-    t0 = time.perf_counter()
-    root, totals = run_plan(plan, unique_joins, device, stats=stats)
-    t1 = time.perf_counter()
-    host = fetch_root(plan, root, totals)
-    t2 = time.perf_counter()
+    with trace.span("wave.dispatch"):
+        t0 = time.time_ns()
+        root, totals = run_plan(plan, unique_joins, device, stats=stats)
+        t1 = time.time_ns()
+    stats["dispatch_ms"] = (t1 - t0) / 1e6 - stats["fetch_ms"]
+    host = fetch_root(plan, root, totals, stats)
     stats["rounds"] += 1
-    stats["dispatch_ms"] = (t1 - t0) * 1e3 - stats["fetch_ms"]
-    stats["decode_ms"] = (t2 - t1) * 1e3  # the root's fetch and its decode
     plan._last_join_totals = dict(totals)
     plan._last_exec_stats = stats
     return host

@@ -34,11 +34,15 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..dtypes import DataType
 from ..ops import join as join_ops
 from ..ops import keynorm
 from .ir import Plan, ScanNode
 from . import executor as _ex
+
+#: joins the fused executor ran, by strategy (``join.<strategy>``)
+JOIN_STATS = trace.Counters("join")
 
 #: combined pad (build + probe) from which general joins take the merge
 #: path, as in the reference (radixjoin_tpu/plan/fused.py _big_merge): the
@@ -271,13 +275,19 @@ class FusedPlan:
         ``touch`` registers the caller's token atomically with the liveness
         check (an eviction pops the entry and drops the memo under the same
         ledger lock), so a True touch means the tensors are the memo's own
-        and stay so until the caller's reservation is released."""
+        and stay so until the caller's reservation is released.
+
+        A structure served again counts one upload memo hit a cached
+        upload it holds (``upload.memo_hits``); one that is not leaves the
+        counting to the rebuild's memo lookups."""
         from .. import engine as eng
 
         ledger = eng.device_ledger(self.device)
         ok = True
         for owner in self.owners:
             ok &= ledger.touch(owner)
+        if ok:
+            _ex.UPLOAD_STATS.add("memo_hits", len(self.owners))
         return ok
 
     def strategies(self) -> Dict[int, str]:
@@ -324,9 +334,10 @@ def _normalize_key(data, valid, dt: DataType):
 def run(structure: FusedPlan):
     """Evaluate the plan: ``(out_values, out_valid, totals)`` — the root's
     columns in its pad and the exact per-join totals (int64, in
-    ``structure.join_order``), all on the structure's device."""
+    ``structure.join_order``), all on the structure's device. Each join is
+    counted by strategy (:data:`JOIN_STATS`) and traced as a
+    ``fused.node`` span (its node id and strategy)."""
     plan = structure.plan
-    col_args, aux_args = structure.col_args, structure.aux_args
     dev = structure.device
     tables: Dict[int, List[Tuple[torch.Tensor, torch.Tensor]]] = {}
     totals = []
@@ -335,125 +346,15 @@ def run(structure: FusedPlan):
         node = plan.nodes[idx]
         if isinstance(node.data, ScanNode):
             spec = structure.scan_specs[idx]
-            tables[idx] = [col_args[c] for c in spec.cols]
+            tables[idx] = [structure.col_args[c] for c in spec.cols]
             continue
-
         spec = structure.join_specs[idx]
-        left, right = tables[spec.left], tables[spec.right]
-        if spec.build_left:
-            (kb, vb), (kp, vp) = left[spec.left_attr], right[spec.right_attr]
-        else:
-            (kb, vb), (kp, vp) = right[spec.right_attr], left[spec.left_attr]
-        if spec.key_dtype is not None:
-            kb, vb = _normalize_key(kb, vb, spec.key_dtype)
-            kp, vp = _normalize_key(kp, vp, spec.key_dtype)
-
-        #: the kernel output that is MONOTONE (cummax owner recovery):
-        #: payload gathers indexed by it ride the blocked-window kernel
-        monotone = None
-        if spec.strategy == "empty":
-            bidx = torch.zeros(spec.out_pad, dtype=torch.int32, device=dev)
-            pidx = torch.zeros(spec.out_pad, dtype=torch.int32, device=dev)
-            live = torch.zeros(spec.out_pad, dtype=torch.bool, device=dev)
-            total = torch.zeros((), dtype=torch.int64, device=dev)
-        elif spec.strategy == "unique_scatter":
-            (base,) = aux_args[spec.aux_id]
-            bidx, live, total = join_ops.join_unique_scatter_impl(
-                kb, vb, kp, vp, base, spec.r_pad
-            )
-            pidx = None
-        elif spec.strategy == "unique_sort":
-            bidx, live, total = join_ops.join_unique_impl(kb, vb, kp, vp)
-            pidx = None
-        elif spec.strategy == "csr":
-            base, counts_w, starts_w, grouped = aux_args[spec.aux_id]
-            bidx, pidx, live, total = join_ops.join_csr_impl(
-                counts_w, starts_w, grouped, kp, vp, base, spec.out_pad
-            )
-            monotone = pidx
-        elif spec.strategy == "csr_swapped":
-            # the *probe* child is the CSR-indexed scan: the build side's
-            # keys take the kernel's probe role, so its bidx addresses
-            # probe rows and its pidx build rows
-            base, counts_w, starts_w, grouped = aux_args[spec.aux_id]
-            pidx, bidx, live, total = join_ops.join_csr_impl(
-                counts_w, starts_w, grouped, kb, vb, base, spec.out_pad
-            )
-            monotone = bidx
-        elif spec.strategy in ("dev_csr", "dev_csr_swapped"):
-            aux = aux_args[spec.aux_id]
-            if spec.key_dtype is DataType.VARCHAR:
-                # dictionary ids -> unified id space, then join as ints
-                base, rb_map, rp_map = aux
-                kb = _remap_ids(kb, rb_map)
-                kp = _remap_ids(kp, rp_map)
-            else:
-                (base,) = aux
-            if spec.strategy == "dev_csr":
-                bidx, pidx, live, total = join_ops.join_dev_csr_impl(
-                    kb, vb, kp, vp, base, spec.r_pad, spec.out_pad
-                )
-            else:
-                # probe child is the device-indexed side (same role swap
-                # as csr_swapped)
-                pidx, bidx, live, total = join_ops.join_dev_csr_impl(
-                    kp, vp, kb, vb, base, spec.r_pad, spec.out_pad
-                )
-        else:  # "merge": payload planes ride the join's single sort
-            need: Dict[Tuple[int, int], Tuple] = {}
-            b_keys, p_keys = [], []
-            for side, ci in spec.out_cols:
-                key = (side, ci)
-                if key in need:
-                    continue
-                need[key] = (left if side == 0 else right)[ci]
-                on_build = (side == 0) == spec.build_left
-                (b_keys if on_build else p_keys).append(key)
-            out_b, out_p, _live, total = join_ops.join_merge_full_impl(
-                kb, vb, kp, vp, spec.out_pad,
-                [need[k] for k in b_keys], [need[k] for k in p_keys],
-            )
-            totals.append(total)
-            got = dict(zip(b_keys, out_b))
-            got.update(zip(p_keys, out_p))
-            tables[idx] = [got[key] for key in spec.out_cols]
-            continue
+        JOIN_STATS.add(spec.strategy)
+        with trace.span("fused.node") as sp:
+            sp.note("node", idx)
+            sp.note("strategy", spec.strategy)
+            tables[idx], total = _run_join(structure, spec, tables)
         totals.append(total)
-
-        lidx = bidx if spec.build_left else pidx
-        ridx = pidx if spec.build_left else bidx
-        gathered: Dict[Tuple[int, int], Tuple] = {}
-        # batch the payload gathers per index stream: every column riding
-        # one stream goes through ONE _gather_cols call (one kernel pass)
-        by_stream: Dict[int, list] = {}
-        for side, ci in spec.out_cols:
-            key = (side, ci)
-            src = (left if side == 0 else right)[ci]
-            idx_arr = lidx if side == 0 else ridx
-            if key in gathered:
-                continue
-            if idx_arr is None:  # unique path: probe side passes through
-                gathered[key] = (src[0], src[1] & live)
-            elif key not in by_stream.setdefault(side, []):
-                by_stream[side].append(key)
-        for side, keys in by_stream.items():
-            idx_arr = lidx if side == 0 else ridx
-            cols_in = [(left if side == 0 else right)[c] for _s, c in keys]
-            g = _ex._gather_cols(
-                cols_in, idx_arr, live,
-                windowed=monotone is not None and idx_arr is monotone,
-            )
-            gathered.update(zip(keys, g))
-        out_cols = [gathered[key] for key in spec.out_cols]
-        if spec.compact_pad:
-            # cardinality feedback: compact the probe-shaped output to its
-            # learned size, so every downstream stage runs at live-row scale
-            out_cols = list(
-                _ex._compact_probe_shaped(
-                    tuple(out_cols), live, spec.compact_pad
-                )
-            )
-        tables[idx] = out_cols
 
     root_cols = tables[plan.root]
     out_values = tuple(c[0] for c in root_cols)
@@ -463,3 +364,121 @@ def run(structure: FusedPlan):
         else torch.zeros(0, dtype=torch.int64, device=dev)
     )
     return out_values, out_valid, totals_arr
+
+
+def _run_join(structure: FusedPlan, spec: _JoinSpec, tables):
+    """One join node of :func:`run`: ``(output columns, exact total)``."""
+    aux_args = structure.aux_args
+    dev = structure.device
+    left, right = tables[spec.left], tables[spec.right]
+    if spec.build_left:
+        (kb, vb), (kp, vp) = left[spec.left_attr], right[spec.right_attr]
+    else:
+        (kb, vb), (kp, vp) = right[spec.right_attr], left[spec.left_attr]
+    if spec.key_dtype is not None:
+        kb, vb = _normalize_key(kb, vb, spec.key_dtype)
+        kp, vp = _normalize_key(kp, vp, spec.key_dtype)
+
+    #: the kernel output that is MONOTONE (cummax owner recovery):
+    #: payload gathers indexed by it ride the blocked-window kernel
+    monotone = None
+    if spec.strategy == "empty":
+        bidx = torch.zeros(spec.out_pad, dtype=torch.int32, device=dev)
+        pidx = torch.zeros(spec.out_pad, dtype=torch.int32, device=dev)
+        live = torch.zeros(spec.out_pad, dtype=torch.bool, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+    elif spec.strategy == "unique_scatter":
+        (base,) = aux_args[spec.aux_id]
+        bidx, live, total = join_ops.join_unique_scatter_impl(
+            kb, vb, kp, vp, base, spec.r_pad
+        )
+        pidx = None
+    elif spec.strategy == "unique_sort":
+        bidx, live, total = join_ops.join_unique_impl(kb, vb, kp, vp)
+        pidx = None
+    elif spec.strategy == "csr":
+        base, counts_w, starts_w, grouped = aux_args[spec.aux_id]
+        bidx, pidx, live, total = join_ops.join_csr_impl(
+            counts_w, starts_w, grouped, kp, vp, base, spec.out_pad
+        )
+        monotone = pidx
+    elif spec.strategy == "csr_swapped":
+        # the *probe* child is the CSR-indexed scan: the build side's
+        # keys take the kernel's probe role, so its bidx addresses
+        # probe rows and its pidx build rows
+        base, counts_w, starts_w, grouped = aux_args[spec.aux_id]
+        pidx, bidx, live, total = join_ops.join_csr_impl(
+            counts_w, starts_w, grouped, kb, vb, base, spec.out_pad
+        )
+        monotone = bidx
+    elif spec.strategy in ("dev_csr", "dev_csr_swapped"):
+        aux = aux_args[spec.aux_id]
+        if spec.key_dtype is DataType.VARCHAR:
+            # dictionary ids -> unified id space, then join as ints
+            base, rb_map, rp_map = aux
+            kb = _remap_ids(kb, rb_map)
+            kp = _remap_ids(kp, rp_map)
+        else:
+            (base,) = aux
+        if spec.strategy == "dev_csr":
+            bidx, pidx, live, total = join_ops.join_dev_csr_impl(
+                kb, vb, kp, vp, base, spec.r_pad, spec.out_pad
+            )
+        else:
+            # probe child is the device-indexed side (same role swap
+            # as csr_swapped)
+            pidx, bidx, live, total = join_ops.join_dev_csr_impl(
+                kp, vp, kb, vb, base, spec.r_pad, spec.out_pad
+            )
+    else:  # "merge": payload planes ride the join's single sort
+        need: Dict[Tuple[int, int], Tuple] = {}
+        b_keys, p_keys = [], []
+        for side, ci in spec.out_cols:
+            key = (side, ci)
+            if key in need:
+                continue
+            need[key] = (left if side == 0 else right)[ci]
+            on_build = (side == 0) == spec.build_left
+            (b_keys if on_build else p_keys).append(key)
+        out_b, out_p, _live, total = join_ops.join_merge_full_impl(
+            kb, vb, kp, vp, spec.out_pad,
+            [need[k] for k in b_keys], [need[k] for k in p_keys],
+        )
+        got = dict(zip(b_keys, out_b))
+        got.update(zip(p_keys, out_p))
+        return [got[key] for key in spec.out_cols], total
+
+    lidx = bidx if spec.build_left else pidx
+    ridx = pidx if spec.build_left else bidx
+    gathered: Dict[Tuple[int, int], Tuple] = {}
+    # batch the payload gathers per index stream: every column riding
+    # one stream goes through ONE _gather_cols call (one kernel pass)
+    by_stream: Dict[int, list] = {}
+    for side, ci in spec.out_cols:
+        key = (side, ci)
+        src = (left if side == 0 else right)[ci]
+        idx_arr = lidx if side == 0 else ridx
+        if key in gathered:
+            continue
+        if idx_arr is None:  # unique path: probe side passes through
+            gathered[key] = (src[0], src[1] & live)
+        elif key not in by_stream.setdefault(side, []):
+            by_stream[side].append(key)
+    for side, keys in by_stream.items():
+        idx_arr = lidx if side == 0 else ridx
+        cols_in = [(left if side == 0 else right)[c] for _s, c in keys]
+        g = _ex._gather_cols(
+            cols_in, idx_arr, live,
+            windowed=monotone is not None and idx_arr is monotone,
+        )
+        gathered.update(zip(keys, g))
+    out_cols = [gathered[key] for key in spec.out_cols]
+    if spec.compact_pad:
+        # cardinality feedback: compact the probe-shaped output to its
+        # learned size, so every downstream stage runs at live-row scale
+        out_cols = list(
+            _ex._compact_probe_shaped(
+                tuple(out_cols), live, spec.compact_pad
+            )
+        )
+    return out_cols, total
