@@ -47,6 +47,14 @@ Phases (any failure exits non-zero; the last line of standard output is
    indices outside the page; then the whole ``decode_fixed_device`` of an
    INT32 and an INT64 column at 1,900 and 18,878 pages, with the kernel's
    share of its device time.
+   ``encode_pages_aligned`` (no Pallas original: the result page encode
+   of the fused route, held to ``encode_fixed_aligned``) runs at S2's and
+   S3's root shapes at scale 1.0 (79.6 M rows x 3 INT32, 36.2 M x 4
+   INT32), timed with the profiler's device time beside the event
+   bracket, then for each of INT32, INT64 and FP64 (with -0.0, NaN and
+   infinities) at n = 0, 1, R - 1, R, R + 1 and 5,000 and with every row
+   NULL, then 20 columns of mixed widths (two launches), views one
+   element off 16 bytes, and on a side stream; it reports its launches.
    The resident gathers also run with unaligned index and table views,
    with one tile, and with sequential positions on the L2 route (the
    index and output streams alone: what remains of the random-position
@@ -65,8 +73,9 @@ Phases (any failure exits non-zero; the last line of standard output is
    row multisets, the root cardinality against a numpy count over the
    base tables, the join strategies covered (merge included), a launch
    count above 0 for every kernel of the path, ``owner_recovery``
-   launched by each warm S1, S2 and S3, and ``cummax_i32`` by the warm S3
-   (its root is the merge join).
+   launched by each warm S1, S2 and S3, ``cummax_i32`` by the warm S3
+   (its root is the merge join), and ``encode_pages_aligned`` once for
+   each fixed-width root column by every warm plan.
 4. Device-time path: with the counters set to 0 just before, every case
    of ``harness/devtime.py`` at ``--devtime-size`` rows (default 2^22),
    printed with its ms and share of the HBM figure, then the kernel cases
@@ -484,6 +493,7 @@ def check_kernels(torch, kernels, dev, seed: int):
              (mono[:1 << 20] // 2).contiguous())
     del tabs, mono, miss, views, wide, many
     check_owner_kernels(torch, kernels, dev, gen, case)
+    check_page_encode(torch, kernels, dev, gen, case)
 
     # the device page decode's calls (PAGED_CASES, _decode_inputs). Beside
     # each case's event bracket, the host time to issue a call and the
@@ -886,6 +896,95 @@ def check_owner_kernels(torch, kernels, dev, gen, case) -> None:
          lambda: kernels.cummax_i32_plain(x))
 
 
+#: the fused route's root shapes at scale 1.0: S2's root (3 INT32
+#: columns) and S3's (4 INT32 columns, cast_info's rows)
+PAGE_ENCODE_ROOTS = (("S2", 79_600_000, 3), ("S3", 36_244_344, 4))
+
+
+def check_page_encode(torch, kernels, dev, gen, case) -> None:
+    """Phase 2's row 10: ``encode_pages_aligned`` against its plain
+    version, bit for bit, at S2's and S3's root shapes (10% NULL rows;
+    timed, with the profiler's device time beside the event bracket), for
+    each width at the edges of the page (no rows, one, R - 1, R, R + 1,
+    5,000, every row NULL, FP64's -0.0, NaN and infinities), 20 columns of
+    mixed widths (two launches), views one element off 16 bytes, and on a
+    side stream; then its launch count for the phase."""
+    from radixjoin_tpu_torch.dtypes import DataType
+    from radixjoin_tpu_torch.harness.kernel_timing import device_ms
+    from radixjoin_tpu_torch.storage import device_decode as dd
+
+    name = "encode_pages_aligned"
+    before = kernels.launch_counts()[name]
+
+    def column(dtype, n, null_frac, extra=0):
+        wide = dtype is not DataType.INT32
+        top = 2 ** 62 if wide else 2 ** 31
+        v = torch.randint(-top, top, (n + extra,), generator=gen, device=dev,
+                          dtype=torch.int64 if wide else torch.int32)
+        if dtype is DataType.FP64:
+            special = torch.tensor([-0.0, float("nan"), float("inf"),
+                                    -float("inf")], dtype=torch.float64,
+                                   device=dev).view(torch.int64)
+            v[:4] = special[:n + extra]
+        valid = torch.rand(n + extra, generator=gen, device=dev) >= null_frac
+        return v, valid
+
+    def enc_case(label, cols, dtypes, n, representative=False):
+        values, valids = [c[0] for c in cols], [c[1] for c in cols]
+
+        def kernel():
+            return kernels.encode_pages_aligned(values, valids, n, dtypes)
+
+        nbytes = kernels.least_bytes(name, values, valids, n, dtypes)
+        ms = case(name, label, kernel,
+                  lambda: kernels.encode_pages_aligned_plain(
+                      values, valids, n, dtypes),
+                  representative, nbytes=nbytes)
+        if n:
+            dev_ms = device_ms(kernel)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            share = (f", {100.0 * bound_ms / dev_ms:.1f}% of the bound"
+                     if dev_ms else "")
+            _log(f"kernel {name} [{label}]: event {ms:.4f} ms, device "
+                 f"{_device_ms_text(dev_ms)}{share} (torch.profiler)")
+
+    for root, n, k in PAGE_ENCODE_ROOTS:
+        cols = [column(DataType.INT32, n, 0.1) for _ in range(k)]
+        enc_case(f"{root} root {n} rows x {k} INT32", cols,
+                 [DataType.INT32] * k, n, representative=root == "S2")
+        del cols
+    for dtype in (DataType.INT32, DataType.INT64, DataType.FP64):
+        r = dd.ALIGNED_ROWS[dtype]
+        for n in (0, 1, r - 1, r, r + 1, 2 * r + 7, 5000):
+            enc_case(f"{dtype.name} n={n}", [column(dtype, n, 0.3, 9)],
+                     [dtype], n)
+        enc_case(f"{dtype.name} n={3 * r + 5} every row NULL",
+                 [column(dtype, 3 * r + 5, 1.0)], [dtype], 3 * r + 5)
+    mixed = [DataType.INT32, DataType.INT64, DataType.FP64] * 6 + [
+        DataType.INT32, DataType.INT64]
+    n = 1 << 20
+    cols = [column(dt, n, 0.25) for dt in mixed]
+    enc_case(f"20 columns of mixed widths n={n}", cols, mixed, n)
+    views = [(v[1:], m[1:]) for v, m in
+             (column(dt, n + 1, 0.25) for dt in mixed[:3])]
+    enc_case(f"views one element off n={n}", views, mixed[:3], n)
+    side = torch.cuda.Stream(dev)
+    values, valids = [c[0] for c in cols], [c[1] for c in cols]
+
+    def on_side():
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out = kernels.encode_pages_aligned(values, valids, n, mixed)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return out
+
+    case(name, f"20 columns n={n} on a side stream", on_side,
+         lambda: kernels.encode_pages_aligned_plain(values, valids, n, mixed))
+    torch.cuda.synchronize()
+    _log(f"kernel {name}: {kernels.launch_counts()[name] - before} launches "
+         "in this phase")
+
+
 def _device_ms_text(ms) -> str:
     return f"{ms:.4f} ms" if ms else "not measured"
 
@@ -1240,6 +1339,14 @@ def run_main_path(torch, np, rt, kernels, args):
             _fail(f"a warm {name} launched no owner_recovery")
     if not warm_launches["S3"]["cummax_i32"]:
         _fail("a warm S3 (the merge join) launched no cummax_i32")
+    for name in plans:
+        fixed = sum(dt is not rt.DataType.VARCHAR
+                    for _ci, dt in plans[name].nodes[plans[name].root]
+                    .output_attrs)
+        if warm_launches[name]["encode_pages_aligned"] != fixed:
+            _fail(f"a warm {name} launched encode_pages_aligned "
+                  f"{warm_launches[name]['encode_pages_aligned']} times for "
+                  f"{fixed} fixed-width root columns")
     for name, _build, _lazy in shapes:
         profile_warm(torch, rt, plans[name], ctx, name)
     return {
@@ -2882,12 +2989,17 @@ def main() -> None:
                            "radixjoin_tpu/ops/join.py:263"),
         "cummax_i32": ("csrc/owner_recovery.cu",
                        "radixjoin_tpu/ops/join.py:383"),
+        # no Pallas original: the host's result page encode, held to
+        # encode_fixed_aligned
+        "encode_pages_aligned": (
+            "csrc/page_encode.cu",
+            "radixjoin_tpu/storage/device_decode.py::encode_fixed_aligned"),
     }
     out = []
     for name, (src, replaces) in meta.items():
         rec = records[name]
         counted = (launches if name in MAIN_PATH_KERNELS + MERGE_PATH_KERNELS
-                   else dt_launches)
+                   + ("encode_pages_aligned",) else dt_launches)
         out.append({
             "name": name, "route": "cuda",
             "source": f"radixjoin_tpu_torch/{src}", "replaces": replaces,

@@ -21,6 +21,14 @@ slot and ``lax.cummax``), held to the JAX functions' values
 * :func:`cummax_i32` — the running max of an int32 stream (the merge
   join's run scans).
 
+One has no JAX counterpart on the device: the JAX package encodes result
+pages on the host. It is held to ``encode_fixed_aligned`` of both
+packages (``csrc/page_encode.cu``):
+
+* :func:`encode_pages_aligned` — dense fixed-width columns into
+  row-aligned 8 KiB pages (the fused executor's root columns, before the
+  fetch).
+
 The four kernels of the in-kernel gather experiments (``tools/``) follow:
 
 * :func:`pallas_gather`, :func:`gather_pallas_vmem` and :func:`mk_gather`
@@ -63,6 +71,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from .. import trace
+from ..dtypes import PAGE_SIZE, DataType
+from ..storage import device_decode
 
 #: largest table the join engine routes to :func:`window_gather`
 WINDOW_GATHER_MAX = 4096
@@ -105,6 +115,7 @@ _SIGNATURES = {
     "rjt_owner_recovery": [_I32, _VP, _I32, _I64, _VP, _I32, _VP, _I64,
                            _I32, _VP],
     "rjt_cummax_i32": [_I32, _VP, _VP, _I64, _VP, _I64, _VP],
+    "rjt_encode_pages": [_I32, _I32, _VP, _VP, _VP, _VP, _I64, _VP],
 }
 
 _lock = threading.Lock()
@@ -221,7 +232,9 @@ def least_bytes(name: str, *args) -> int:
     ``with_ok``; its table reads depend on the values and are left out, so
     this is a lower bound), ``paged_window_gather`` ``(body, idx)``,
     ``owner_recovery`` ``(offsets, total, s_pad)``, ``cummax_i32``
-    ``(x,)``, the resident gathers and ``onehot_gather`` ``(table,
+    ``(x,)``, ``encode_pages_aligned`` ``(values, valids, n, dtypes)``
+    (the first ``n`` rows of each column read, its pages written), the
+    resident gathers and ``onehot_gather`` ``(table,
     idx)``."""
     if name == "window_gather":
         tables, idx = args
@@ -244,6 +257,11 @@ def least_bytes(name: str, *args) -> int:
     if name == "cummax_i32":
         (x,) = args
         return 2 * x.numel() * x.element_size()
+    if name == "encode_pages_aligned":
+        values, valids, n, dtypes = args
+        return sum(n * (v.element_size() + m.element_size())
+                   + _aligned_pages(n, dt) * PAGE_SIZE
+                   for v, m, dt in zip(values, valids, dtypes))
     if name in ("pallas_gather", "gather_pallas_vmem", "mk_gather",
                 "onehot_gather"):
         table, idx = args
@@ -919,9 +937,133 @@ def cummax_i32(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# encode_pages_aligned
+# ---------------------------------------------------------------------------
+
+#: the torch dtype each fixed-width column arrives in (FP64 as its bits)
+_PAGE_VALUE_DTYPES = {DataType.INT32: torch.int32,
+                      DataType.INT64: torch.int64,
+                      DataType.FP64: torch.int64}
+
+
+def _aligned_pages(n: int, dtype: DataType) -> int:
+    return -(-n // device_decode.ALIGNED_ROWS[dtype])
+
+
+def _encode_column_plain(values: torch.Tensor, valid: torch.Tensor, n: int,
+                         dtype: DataType) -> torch.Tensor:
+    r = device_decode.ALIGNED_ROWS[dtype]
+    npages = _aligned_pages(n, dtype)
+    out = torch.zeros((npages, PAGE_SIZE), dtype=torch.uint8,
+                      device=values.device)
+    if npages == 0:
+        return out
+    vals = torch.zeros(npages * r, dtype=values.dtype, device=values.device)
+    vals[:n] = values[:n]
+    live = torch.zeros(npages * r, dtype=torch.bool, device=values.device)
+    live[:n] = valid[:n]
+    vals, live = vals.view(npages, r), live.view(npages, r)
+    nr = torch.full((npages,), r, dtype=torch.int16, device=values.device)
+    nr[-1] = n - (npages - 1) * r
+    header = out.view(torch.int16)
+    header[:, 0] = nr
+    header[:, 1] = live.sum(dim=1).to(torch.int16)
+    # non-null values packed from byte max(4, width) in row order
+    words = out.view(values.dtype)
+    first = max(4, values.element_size()) // values.element_size()
+    rank = torch.cumsum(live, dim=1) - 1
+    page, row = torch.nonzero(live, as_tuple=True)
+    words[page, first + rank[page, row]] = vals[page, row]
+    # the bitmap, little bit order, in the page's last ceil(rows / 8) bytes
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.int32,
+                           device=values.device)
+    bitmap = (live.view(npages, r // 8, 8).to(torch.int32) * weights).sum(
+        dim=2).to(torch.uint8)
+    full = n // r
+    out[:full, PAGE_SIZE - r // 8:] = bitmap[:full]
+    if full < npages:
+        nb = (int(nr[-1]) + 7) // 8
+        out[-1, PAGE_SIZE - nb:] = bitmap[-1, :nb]
+    return out
+
+
+def encode_pages_aligned_plain(values, valids, n: int,
+                               dtypes) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`encode_pages_aligned`."""
+    return [_encode_column_plain(v, m, n, DataType(dt))
+            for v, m, dt in zip(values, valids, dtypes)]
+
+
+def encode_pages_aligned(values, valids, n: int,
+                         dtypes) -> List[torch.Tensor]:
+    """The first ``n`` rows of each fixed-width column as row-aligned 8 KiB
+    pages: a ``(ceil(n / R), PAGE_SIZE)`` uint8 tensor a column, bit-equal
+    to ``storage.device_decode.encode_fixed_aligned`` (R =
+    ``device_decode.ALIGNED_ROWS``: 1,920 INT32 rows a page, 960 INT64 or
+    FP64; the last page holds the rest). ``values[t]`` is 1-D int32 for
+    INT32 and int64 for INT64 and FP64 (its bit pattern, as the engine
+    keeps it on the card), ``valids[t]`` 1-D bool, both at least ``n``
+    long; ``dtypes[t]`` the column's ``DataType``.
+
+    On the card one launch serves up to 16 columns of any mix of widths (a
+    longer list is split), one block a page (``csrc/page_encode.cu``), on
+    the current stream, with no memset, atomics or host sync."""
+    name = "encode_pages_aligned"
+    values, valids = list(values), list(valids)
+    dtypes = [DataType(dt) for dt in dtypes]
+    n = int(n)
+    if not len(values) == len(valids) == len(dtypes):
+        raise ValueError(f"{name}: values, valids and dtypes differ in "
+                         "length")
+    if not values:
+        raise ValueError(f"{name}: no columns")
+    if n < 0:
+        raise ValueError(f"{name}: n must be >= 0, got {n}")
+    device = values[0].device
+    for v, m, dt in zip(values, valids, dtypes):
+        want = _PAGE_VALUE_DTYPES.get(dt)
+        if want is None:
+            raise TypeError(f"{name}: {dt.name} is not a fixed-width type")
+        if v.dtype != want or v.dim() != 1 or not v.is_contiguous():
+            raise TypeError(f"{name}: a {dt.name} column must be a contiguous "
+                            f"1-D {want} tensor, got {v.dtype} with shape "
+                            f"{tuple(v.shape)}")
+        if m.dtype != torch.bool or m.dim() != 1 or not m.is_contiguous():
+            raise TypeError(f"{name}: validity must be a contiguous 1-D bool "
+                            "tensor")
+        if v.device != device or m.device != device:
+            raise ValueError(f"{name}: columns on more than one device")
+        if v.shape[0] < n or m.shape[0] < n:
+            raise ValueError(f"{name}: a column is shorter than n = {n}")
+    if device.type == "cpu":
+        return encode_pages_aligned_plain(values, valids, n, dtypes)
+    _cuda_or_raise(device, name)
+    lib = build()
+    outs = [torch.empty((_aligned_pages(n, dt), PAGE_SIZE), dtype=torch.uint8,
+                        device=device) for dt in dtypes]
+    if n == 0:
+        return outs
+    dev = _index(device)
+    for members in _launch_groups(len(values)):
+        rc = lib.rjt_encode_pages(
+            dev, len(members), _ptr_array([values[i] for i in members]),
+            _ptr_array([valids[i] for i in members]),
+            _ptr_array([outs[i] for i in members]),
+            _int_array([values[i].element_size() for i in members]), n,
+            _stream(device),
+        )
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        _count_launch(encode_pages_aligned)
+    if trace.ON:
+        _count_least_bytes(encode_pages_aligned, values, valids, n, dtypes)
+    return outs
+
+
 _WRAPPERS = (window_gather, blocked_window_gather_multi, paged_window_gather,
              pallas_gather, gather_pallas_vmem, mk_gather, onehot_gather,
-             owner_recovery, cummax_i32)
+             owner_recovery, cummax_i32, encode_pages_aligned)
 reset_launch_counts()
 for _fn in (paged_window_gather, pallas_gather, gather_pallas_vmem,
             mk_gather):

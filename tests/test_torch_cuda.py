@@ -353,6 +353,12 @@ def test_job_shape_on_card_matches_cpu(cuda_device, shape, lazy):
     assert launched["window_gather"] > 0
     assert launched["blocked_window_gather_multi"] > 0
     assert (launched["paged_window_gather"] > 0) == (not lazy)
+    # the root's fixed-width columns leave the card as row-aligned pages
+    fixed = [c for c in got.columns if c.type is not DataType.VARCHAR]
+    assert launched["encode_pages_aligned"] == len(fixed) > 0
+    for col in fixed:
+        assert dd.aligned_full_pages(col.pages, got.num_rows, col.type) == (
+            got.num_rows // dd.ALIGNED_ROWS[col.type])
 
 
 @pytest.mark.cuda
@@ -1415,3 +1421,117 @@ def test_cuda_owner_wrappers_raise_when_the_library_is_unbuilt(
         kernels.owner_recovery(offsets, total, 16)
     with pytest.raises(RuntimeError):
         kernels.cummax_i32(offsets)
+
+
+# ---------------------------------------------------------------------------
+# encode_pages_aligned: the result page encode on the card
+# ---------------------------------------------------------------------------
+
+#: the fused route's root shapes at scale 1.0: S2 (79.6 M rows x 3 INT32)
+#: and S3 (cast_info's 36,244,344 rows x 4 INT32)
+ENCODE_ROOTS = {"s2": (79_600_000, 3), "s3": (36_244_344, 4)}
+ENCODE_TYPES = [DataType.INT32, DataType.INT64, DataType.FP64]
+
+
+def _encode_column(dev, gen, dtype, n, null_frac, extra=0):
+    """(values as the card keeps them, validity) of ``n + extra`` rows;
+    FP64 starts with -0.0, NaN and both infinities."""
+    wide = dtype is not DataType.INT32
+    v = _rand(gen, dev, n + extra, torch.int64 if wide else torch.int32)
+    if dtype is DataType.FP64:
+        special = torch.tensor([-0.0, float("nan"), float("inf"),
+                                -float("inf")], dtype=torch.float64,
+                               device=dev).view(torch.int64)
+        v[:4] = special[:n + extra]
+    valid = torch.rand(n + extra, generator=gen, device=dev) >= null_frac
+    return v, valid
+
+
+def _assert_encode_matches_plain(values, valids, n, dtypes):
+    got = kernels.encode_pages_aligned(values, valids, n, dtypes)
+    want = kernels.encode_pages_aligned_plain(values, valids, n, dtypes)
+    assert len(got) == len(want)
+    for g, w, dt in zip(got, want, dtypes):
+        assert g.shape == w.shape == (-(-n // dd.ALIGNED_ROWS[dt]),
+                                      dd.PAGE_SIZE)
+        assert torch.equal(g, w), dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root", sorted(ENCODE_ROOTS))
+def test_cuda_encode_pages_at_the_root_shapes(cuda_device, root):
+    n, k = ENCODE_ROOTS[root]
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    cols = [_encode_column(cuda_device, gen, DataType.INT32, n, 0.1)
+            for _ in range(k)]
+    kernels.reset_launch_counts()
+    _assert_encode_matches_plain([c[0] for c in cols], [c[1] for c in cols],
+                                 n, [DataType.INT32] * k)
+    assert kernels.launch_counts()["encode_pages_aligned"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ENCODE_TYPES, ids=lambda d: d.name)
+@pytest.mark.parametrize("edge", ["no rows", "one row", "R-1", "R", "R+1",
+                                  "a trailing partial page", "all NULL",
+                                  "all valid"])
+def test_cuda_encode_pages_edges(cuda_device, dtype, edge):
+    r = dd.ALIGNED_ROWS[dtype]
+    n, null_frac = {"no rows": (0, 0.3), "one row": (1, 0.0),
+                    "R-1": (r - 1, 0.3), "R": (r, 0.3), "R+1": (r + 1, 0.3),
+                    "a trailing partial page": (5 * r + 13, 0.3),
+                    "all NULL": (3 * r + 5, 1.0),
+                    "all valid": (3 * r + 5, 0.0)}[edge]
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    v, m = _encode_column(cuda_device, gen, dtype, n, null_frac, extra=9)
+    kernels.reset_launch_counts()
+    _assert_encode_matches_plain([v], [m], n, [dtype])
+    assert kernels.launch_counts()["encode_pages_aligned"] == (1 if n else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_encode_pages_mixed_widths_past_one_launch(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    dtypes = ENCODE_TYPES * 6 + ENCODE_TYPES[:2]  # 20 columns
+    n = 7 * 1920 + 33
+    cols = [_encode_column(cuda_device, gen, dt, n, 0.25) for dt in dtypes]
+    kernels.reset_launch_counts()
+    _assert_encode_matches_plain([c[0] for c in cols], [c[1] for c in cols],
+                                 n, dtypes)
+    assert kernels.launch_counts()["encode_pages_aligned"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_encode_pages_from_unaligned_views(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    n = 4 * 1920 + 3
+    cols = [_encode_column(cuda_device, gen, dt, n + 3, 0.25)
+            for dt in ENCODE_TYPES]
+    _assert_encode_matches_plain([v[1:] for v, _m in cols],
+                                 [m[3:] for _v, m in cols], n, ENCODE_TYPES)
+
+
+@pytest.mark.cuda
+def test_cuda_encode_pages_on_a_side_stream_with_no_host_sync(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    n = 1 << 20
+    cols = [_encode_column(cuda_device, gen, dt, n, 0.25)
+            for dt in ENCODE_TYPES]
+    values, valids = [c[0] for c in cols], [c[1] for c in cols]
+    want = kernels.encode_pages_aligned_plain(values, valids, n, ENCODE_TYPES)
+    kernels.encode_pages_aligned(values, valids, n, ENCODE_TYPES)  # built
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(side):
+            got = [kernels.encode_pages_aligned(values, valids, n,
+                                                ENCODE_TYPES)
+                   for _ in range(4)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    for pages in got:
+        assert all(torch.equal(g, w) for g, w in zip(pages, want))

@@ -19,6 +19,7 @@ import torch
 
 import radixjoin_tpu_torch as port
 from radixjoin_tpu_torch import engine, trace
+from radixjoin_tpu_torch.dtypes import DataType
 from radixjoin_tpu_torch.harness import job_shapes
 from radixjoin_tpu_torch.harness.datagen import SyntheticIMDB
 from radixjoin_tpu_torch.ops import kernels
@@ -134,12 +135,21 @@ def test_route_leaves_one_request_covered_by_its_children(tables, route,
     covered = _union_ns(_children(log, req.span))
     assert covered >= 0.7 * req.span.duration_ns, (covered, req.span)
     # the decode (the spill has none: its takes materialize every join)
-    # and encode spans name each column
+    # and encode spans name each column; the fused route encodes its
+    # fixed-width columns on the device and decodes only VARCHAR ones
+    attrs = plan.nodes[plan.root].output_attrs
+    fixed = sum(dt is not DataType.VARCHAR for _ci, dt in attrs)
     for name in ("encode.column",) if route == "spill" else (
             "decode.column", "encode.column"):
         cols = [sp for sp in log.spans if sp.name == name]
-        assert len(cols) == len(plan.nodes[plan.root].output_attrs)
+        want = len(attrs)
+        if route == "fused" and name == "decode.column":
+            want -= fixed
+        assert len(cols) == want
         assert all(sp.attrs["rows"] == cols[0].attrs["rows"] for sp in cols)
+    on_card = [sp for sp in log.spans
+               if sp.name == "encode.column" and sp.attrs.get("on_card")]
+    assert len(on_card) == (fixed if route == "fused" else 0)
 
 
 def test_fused_request_spans_every_layer(tables):
@@ -238,9 +248,12 @@ def test_oom_retry_is_a_span_of_the_request(tables, monkeypatch):
     _assert_nested(log)
     (req,) = log.requests
     names = [c.name for c in _children(log, req.span)]
+    fixed = sum(dt is not DataType.VARCHAR
+                for _ci, dt in plan.nodes[plan.root].output_attrs)
     assert names == ["prepare", "ledger.admit", "prepare", "fused.attempt",
-                     "oom.retry", "prepare", "fused.attempt", "fetch",
-                     "decode", "encode"]
+                     "oom.retry", "prepare", "fused.attempt"] + [
+                         "encode.column"] * fixed + ["fetch", "decode",
+                                                     "encode"]
     assert req.counters["engine.oom_retries"] == 1
     covered = _union_ns(_children(log, req.span))
     assert covered >= 0.7 * req.span.duration_ns
@@ -405,14 +418,16 @@ def test_every_route_leaves_its_stage_breakdown(tables, route, monkeypatch):
 
 def test_fused_dispatch_is_the_spans_between_the_fetches(tables):
     """``dispatch_ms`` of the fused executor is the part of ``prepare``
-    inside it, ``fused.build``, ``fused.launch`` and ``fused.check``, up
-    to the glue between them."""
+    inside it, ``fused.build``, ``fused.launch``, ``fused.check`` and the
+    root's page encode on the device (``encode.column`` with ``on_card``),
+    up to the glue between them."""
     plan, ctx = _plan(tables), port.build_context("cpu")
     port.execute(plan, ctx)
     _result, log, _wall = _traced(lambda: port.execute(plan, ctx))
     (req,) = log.requests
     parts = [sp for sp in log.spans if sp.name in (
-        "fused.build", "fused.launch", "fused.check")]
+        "fused.build", "fused.launch", "fused.check")
+        or sp.attrs.get("on_card")]
     parts.append([c for c in _children(log, req.span)
                   if c.name == "prepare"][1])  # the generator's own
     spans_ms = sum(sp.duration_ns for sp in parts) / 1e6
@@ -469,7 +484,16 @@ def test_least_bytes_equal_the_benchmark_count(name):
 def test_least_bytes_covers_every_wrapper():
     table, idx = torch.zeros(1 << 12, dtype=torch.int32), _i32(1 << 13, 4096)
     for fn in kernels._WRAPPERS:
-        if fn.__name__ not in LEAST_BYTES_CASES:
+        if fn.__name__ == "encode_pages_aligned":
+            # each row's value and validity byte read, each page written
+            values = [torch.zeros(5000, dtype=torch.int32),
+                      torch.zeros(5000, dtype=torch.int64)]
+            valids = [torch.zeros(5000, dtype=torch.bool)] * 2
+            assert kernels.least_bytes(
+                fn.__name__, values, valids, 4801,
+                [DataType.INT32, DataType.FP64]) == (
+                4801 * 5 + 3 * 8192 + 4801 * 9 + 6 * 8192)
+        elif fn.__name__ not in LEAST_BYTES_CASES:
             assert kernels.least_bytes(fn.__name__, table, idx) == (
                 4 * (1 << 12) + 8 * (1 << 13))
     with pytest.raises(ValueError):
