@@ -977,9 +977,12 @@ def _execute_fused(plan: Plan, context: Context) -> Optional[HostTable]:
     fuse. Leaves a stage breakdown of this execution (dispatch, fetch and
     decode milliseconds on the host clock, fetch rounds) on the plan and
     the context as ``_last_exec_stats`` / ``last_exec_stats``. The stamps
-    that cut the stages also bound the ``fetch`` and ``decode`` spans."""
-    gen = _fused_attempts(plan, context)
+    that cut the stages also bound the ``fetch`` and ``decode`` spans.
+    The joins of the attempt that served the result leave their shapes
+    (``node_shapes``) and, on the card, their stream time
+    (``node_device_ms``) there too (:func:`_node_stats`)."""
     stats = {"dispatch_ms": 0.0, "fetch_ms": 0.0, "rounds": 0}
+    gen = _fused_attempts(plan, context, stats)
     decode = None
     t0 = time.time_ns()
     try:
@@ -1080,7 +1083,8 @@ def precompile_fused(plan: Plan, context: Optional[Context] = None) -> bool:
     return True
 
 
-def _fused_attempts(plan: Plan, context: Context):
+def _fused_attempts(plan: Plan, context: Context,
+                    stats: Optional[dict] = None):
     """Generator form of the fused executor: yields its fetch requests as
     ``(kind, tensors)``, ``kind`` ``"totals"`` or ``"root"``, takes the
     fetched numpy values sent back in, and returns the decoded HostTable
@@ -1100,7 +1104,9 @@ def _fused_attempts(plan: Plan, context: Context):
     (:func:`_encode_root_pages`), which the returned table holds as a paged
     ``Column``, and each VARCHAR column as ids and validity, decoded. The
     exact buckets go to the cross-process store too (:class:`_FeedbackStore`),
-    and a plan object with none is looked up there first.
+    and a plan object with none is looked up there first. The exact
+    attempt's joins are counted by rows (:func:`_node_stats`), which also
+    fills ``stats`` where one is given.
 
     Traced: ``prepare`` (before the first attempt), then per attempt
     ``fused.attempt`` over ``fused.build``, ``fused.launch`` and
@@ -1141,7 +1147,8 @@ def _fused_attempts(plan: Plan, context: Context):
             if structure.has_varchar_key:
                 return None  # the caller falls back to the wave executor
             with trace.span("fused.launch"):
-                out_values_dev, out_valid_dev, totals_dev = fz.run(structure)
+                (out_values_dev, out_valid_dev, totals_dev,
+                 marks) = fz.run(structure)
             (totals,) = yield "totals", [totals_dev]
 
             with trace.span("fused.check"):
@@ -1151,6 +1158,7 @@ def _fused_attempts(plan: Plan, context: Context):
                     root_total = _root_total(plan, structure, totals)
                     _keep_feedback(plan, structure, totals, root_total,
                                    feedback_on)
+                    _node_stats(plan, structure, marks, totals, stats)
             att.note("overflowed", overflow)
         if overflow:
             FUSED_STATS.add("overflow_reruns")
@@ -1241,6 +1249,52 @@ def _check_totals(structure, totals, buckets: dict, no_compact: set) -> bool:
         else:
             buckets[node_id] = join_ops.bucket_size(int(totals[ji]))
     return overflow
+
+
+def _node_stats(plan: Plan, structure, marks, totals,
+                stats: Optional[dict]) -> None:
+    """The joins of an exact fused run (``marks``, as :func:`fused.run
+    <radixjoin_tpu_torch.plan.fused.run>` returned them), once its totals
+    are on the host: each counted by its live probe and output rows, by strategy
+    (``join.probe_rows.<strategy>``, ``join.out_rows.<strategy>``), and
+    left in ``stats`` (when given) as ``node_shapes``, node id ->
+    ``{strategy, probe_rows, build_rows, key_bytes, out_rows,
+    out_col_bytes}`` (live rows, not padded ones; bytes of one value),
+    and on the card ``node_device_ms``, node id -> milliseconds between
+    the node's two events: its stream time, the launch gaps inside it
+    included. That time is also the ``device_ms`` of its ``fused.node``
+    span. The totals' fetch has waited for the run's stream, so reading
+    the events blocks on nothing."""
+    from .plan import fused as fz
+
+    live = {node_id: int(totals[ji])
+            for ji, node_id in enumerate(structure.join_order)}
+
+    def rows(child: int) -> int:
+        if child in live:
+            return live[child]
+        return plan.inputs[plan.nodes[child].data.base_table_id].num_rows
+
+    shapes, device_ms = {}, {}
+    for mark in marks:
+        spec = structure.join_specs[mark.node]
+        build, probe = ((spec.left, spec.right) if spec.build_left
+                        else (spec.right, spec.left))
+        shape = {"strategy": spec.strategy, "probe_rows": rows(probe),
+                 "build_rows": rows(build), "key_bytes": mark.key_bytes,
+                 "out_rows": live[mark.node],
+                 "out_col_bytes": list(mark.out_col_bytes)}
+        shapes[mark.node] = shape
+        fz.JOIN_STATS.add(f"probe_rows.{spec.strategy}", shape["probe_rows"])
+        fz.JOIN_STATS.add(f"out_rows.{spec.strategy}", shape["out_rows"])
+        if mark.start is not None:
+            ms = mark.start.elapsed_time(mark.end)
+            device_ms[mark.node] = ms
+            mark.span.note("device_ms", ms)
+    if stats is not None:
+        stats["node_shapes"] = shapes
+        if device_ms:
+            stats["node_device_ms"] = device_ms
 
 
 def _root_total(plan: Plan, structure, totals) -> int:

@@ -331,16 +331,43 @@ def _normalize_key(data, valid, dt: DataType):
     return data, valid
 
 
+@dataclasses.dataclass
+class NodeMark:
+    """One join of a :func:`run`: its node id, its ``fused.node`` span
+    (:data:`trace.OFF` while tracing is off), the CUDA events recorded on
+    its stream before and after its work (None on the CPU), the bytes of
+    one key and of one value of each output column."""
+
+    node: int
+    span: object
+    start: Optional[torch.cuda.Event]
+    end: Optional[torch.cuda.Event]
+    key_bytes: int
+    out_col_bytes: Tuple[int, ...]
+
+
+def _timing_event(dev):
+    """A timing CUDA event recorded now on ``dev``'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
 def run(structure: FusedPlan):
-    """Evaluate the plan: ``(out_values, out_valid, totals)`` — the root's
-    columns in its pad and the exact per-join totals (int64, in
-    ``structure.join_order``), all on the structure's device. Each join is
-    counted by strategy (:data:`JOIN_STATS`) and traced as a
-    ``fused.node`` span (its node id and strategy)."""
+    """Evaluate the plan: ``(out_values, out_valid, totals, marks)`` — the
+    root's columns in its pad and the exact per-join totals (int64, in
+    ``structure.join_order``), all on the structure's device, and this
+    run's :class:`NodeMark` of each join, in that order. Each join is
+    counted by strategy (:data:`JOIN_STATS`), traced as a ``fused.node``
+    span (its node id and strategy) and, on the card, bracketed by two
+    timing events on its stream, for the caller to read once the totals
+    have reached the host."""
     plan = structure.plan
     dev = structure.device
+    timed = dev.type == "cuda"
     tables: Dict[int, List[Tuple[torch.Tensor, torch.Tensor]]] = {}
     totals = []
+    marks: List[NodeMark] = []
 
     for idx in structure.order:
         node = plan.nodes[idx]
@@ -350,10 +377,17 @@ def run(structure: FusedPlan):
             continue
         spec = structure.join_specs[idx]
         JOIN_STATS.add(spec.strategy)
+        pchild, pattr = ((spec.right, spec.right_attr) if spec.build_left
+                         else (spec.left, spec.left_attr))
         with trace.span("fused.node") as sp:
             sp.note("node", idx)
             sp.note("strategy", spec.strategy)
+            start = _timing_event(dev) if timed else None
             tables[idx], total = _run_join(structure, spec, tables)
+            end = _timing_event(dev) if timed else None
+        marks.append(NodeMark(
+            idx, sp, start, end, tables[pchild][pattr][0].element_size(),
+            tuple(c[0].element_size() for c in tables[idx])))
         totals.append(total)
 
     root_cols = tables[plan.root]
@@ -363,7 +397,7 @@ def run(structure: FusedPlan):
         torch.stack(totals) if totals
         else torch.zeros(0, dtype=torch.int64, device=dev)
     )
-    return out_values, out_valid, totals_arr
+    return out_values, out_valid, totals_arr, marks
 
 
 def _run_join(structure: FusedPlan, spec: _JoinSpec, tables):

@@ -1,4 +1,5 @@
-from .catalog import ATTRIBUTES, COLUMN_TO_TABLES, column_index, column_type
+from .catalog import (ATTRIBUTES, COLUMN_TO_TABLES, IMDB, Catalog, column_index,
+                      column_type)
 from .frontend import ParsedSQL, TableEntity
 from .explain import plan_from_explain
 

@@ -3,11 +3,13 @@
 Walks the EXPLAIN tree the same way the reference harness does
 (tests/read_sql.cpp:861-1141):
 
-* ``Aggregate``/``Gather`` wrappers are transparent;
+* ``Aggregate``/``Gather``/``Sort`` wrappers are transparent (the caller
+  aggregates and orders the joined rows);
 * a ``Hash Join`` must have exactly one ``Hash`` child — that side is the
   build side (``build_left``), the child under ``Hash`` is unwrapped;
 * ``Seq Scan``/``Index Only Scan`` resolve via ``Alias`` (or a unique
-  ``Relation Name``) to a :class:`~.frontend.TableEntity` and load the
+  ``Relation Name``, also where ``Alias`` repeats it, as PostgreSQL writes
+  an unaliased table) to a :class:`~.frontend.TableEntity` and load the
   pre-filtered base table through a pluggable ``table_provider``;
 * the join condition is found by intersecting the entity sets of the two
   sides against the SQL join graph (any one edge suffices — the DSU closure
@@ -28,10 +30,9 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 from ..dtypes import DataType
 from ..plan.ir import Plan
 from ..storage.columnar import ColumnarTable
-from . import catalog
 from .frontend import ParsedSQL, TableEntity
 
-_TRANSPARENT = {"Aggregate", "Gather"}
+_TRANSPARENT = {"Aggregate", "Gather", "Sort"}
 _JOINS = {"Nested Loop", "Hash Join", "Merge Join"}
 _SCANS = {"Seq Scan", "Index Only Scan"}
 
@@ -61,12 +62,14 @@ def _split_hash_join(node: dict) -> Tuple[bool, dict, dict]:
 
 def _scan_entity(node: dict, parsed: ParsedSQL) -> TableEntity:
     alias = node.get("Alias")
-    if alias is not None:
+    relation = node.get("Relation Name")
+    # PostgreSQL names an unaliased table's scan by the table's name
+    if alias is not None and not (alias == relation
+                                  and alias not in parsed.alias_map):
         ent = parsed.alias_map.get(alias)
         if ent is None:
             raise ExplainError(f"cannot resolve scan alias: {alias}")
         return ent
-    relation = node.get("Relation Name")
     if relation is None:
         raise ExplainError("scan node has neither Alias nor Relation Name")
     if parsed.table_counts.get(relation) != 1:
@@ -91,7 +94,10 @@ def plan_from_explain(
     parsed: ParsedSQL,
     table_provider: TableProvider,
 ) -> Plan:
-    """Convert one EXPLAIN-JSON document (its "Plan" node) into a Plan."""
+    """Convert one EXPLAIN-JSON document (its "Plan" node) into a Plan.
+    Scans take their columns from the catalog ``parsed`` was resolved
+    against."""
+    catalog = parsed.catalog
     plan = Plan()
     input_ids: Dict[TableEntity, int] = {}
 
@@ -185,7 +191,7 @@ def plan_from_explain(
         node: dict, required: List[Tuple[TableEntity, str]]
     ) -> Tuple[int, List[_ColInfo]]:
         entity = _scan_entity(node, parsed)
-        attributes = catalog.ATTRIBUTES[entity.table]
+        attributes = catalog.attributes[entity.table]
         filt = parsed.filters.get(entity)
         if entity not in input_ids:
             table = table_provider(entity, attributes, filt)

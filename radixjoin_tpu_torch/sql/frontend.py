@@ -1,4 +1,4 @@
-"""SQL frontend: lower a parsed JOB query into filters + join graph.
+"""SQL frontend: lower a parsed JOB or SSB query into filters + join graph.
 
 Reimplements the semantics of the reference's ``ParsedSQL``
 (tests/read_sql.cpp:680-859) on our own AST:
@@ -14,6 +14,12 @@ Reimplements the semantics of the reference's ``ParsedSQL``
   join graph, at most one edge per entity pair (read_sql.cpp:818-857);
 * ``executed_sql`` rewrites the select list to the raw joined columns
   (stripping MIN aggregates) for oracle execution (read_sql.cpp:694-729).
+
+The root's output (``output_attrs``) is, in the order the SQL text reads
+them, one column a plain or ``MIN`` select item, as in the reference, and
+each column that an expression item (``SUM(a * b)``), GROUP BY or ORDER BY
+reads and no earlier item did: the caller aggregates and orders the joined
+rows. Tables and columns resolve against ``catalog`` (IMDB's by default).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from . import catalog
+from .catalog import IMDB, Catalog
 from .parser import (
     Between,
     BoolOp,
@@ -69,9 +75,11 @@ class DSU:
 
 
 class ParsedSQL:
-    def __init__(self, sql: str, name: str = "<query>"):
+    def __init__(self, sql: str, name: str = "<query>",
+                 catalog: Optional[Catalog] = None):
         self.name = name
         self.sql = sql
+        self.catalog = IMDB if catalog is None else catalog
         stmt = parse_sql(sql)
         self.table_counts: Dict[str, int] = {}
         self.alias_map: Dict[str, TableEntity] = {}
@@ -97,7 +105,7 @@ class ParsedSQL:
                     raise ValueError(f"ambiguous table: {ref.table}")
                 ent = TableEntity(ref.table, 0)
             return ref.column, ent
-        tables = catalog.COLUMN_TO_TABLES.get(ref.column)
+        tables = self.catalog.column_to_tables.get(ref.column)
         if not tables:
             raise ValueError(f"no such column: {ref.column}")
         if len(tables) > 1:
@@ -121,13 +129,13 @@ class ParsedSQL:
     def _build(self, stmt: SelectStatement) -> None:
         column_count = 0
         for table, alias in stmt.tables:
-            if table not in catalog.ATTRIBUTES:
+            if table not in self.catalog:
                 raise ValueError(f"no table {table} in schema")
             occurrence = self.table_counts.get(table, 0)
             self.table_counts[table] = occurrence + 1
             ent = TableEntity(table, occurrence)
             colmap: Dict[str, int] = {}
-            for name in catalog.column_names(table):
+            for name in self.catalog.column_names(table):
                 colmap[name] = column_count
                 self.column_vec.append((ent, name))
                 column_count += 1
@@ -137,8 +145,21 @@ class ParsedSQL:
                 self.entity_to_alias[ent] = alias
 
         for item in stmt.select_list:
-            column, ent = self.resolve(item.column)
-            self.output_attrs.append((ent, column))
+            if item.expr is None:
+                column, ent = self.resolve(item.column)
+                self.output_attrs.append((ent, column))
+            else:
+                self._add_outputs(item.columns())
+        self._add_outputs(stmt.group_by)
+        # an ORDER BY name that is a select item's alias reads its columns
+        aliases = {item.alias: item for item in stmt.select_list
+                   if item.alias is not None}
+        for order in stmt.order_by:
+            ref = order.ref
+            if ref.table is None and ref.column in aliases:
+                self._add_outputs(aliases[ref.column].columns())
+            else:
+                self._add_outputs([ref])
 
         dsu = DSU(column_count)
         if stmt.where is not None:
@@ -162,12 +183,21 @@ class ParsedSQL:
                     self.join_graph.setdefault(le, {})[re_] = (lc, rc)
                     self.join_graph.setdefault(re_, {})[le] = (rc, lc)
 
+    def _add_outputs(self, refs) -> None:
+        """Append each column of ``refs`` not in ``output_attrs`` yet."""
+        for ref in refs:
+            column, ent = self.resolve(ref)
+            if (ent, column) not in self.output_attrs:
+                self._global_col(ent, column)  # raises for an unknown column
+                self.output_attrs.append((ent, column))
+
     def _insert_filter(self, ent: TableEntity, stmt: Statement) -> None:
         existing = self.filters.get(ent)
         self.filters[ent] = and_filters(existing, stmt)
 
     def _comparison(self, ent: TableEntity, column: str, op: Op, value) -> Comparison:
-        return Comparison(catalog.column_index(ent.table, column), op, value)
+        return Comparison(self.catalog.column_index(ent.table, column), op,
+                          value)
 
     def _walk(self, expr, dsu: DSU, level: int):
         """Returns (statement | None, entity) — a None statement means the

@@ -1,12 +1,15 @@
-"""Minimal SQL parser for the JOB query shape.
+"""Minimal SQL parser for the JOB and SSB query shapes.
 
 The reference harness uses the hsql parser and supports exactly:
 ``SELECT <MIN(col)|col>, ... FROM t [AS a], ... WHERE <condition>;`` with
 conditions built from AND/OR/NOT, comparisons (=, !=, <>, <, >, <=, >=),
 LIKE / NOT LIKE, BETWEEN, IN (...), IS [NOT] NULL, and column = column
 equi-join predicates (reference tests/read_sql.cpp:329-655, :731-858).
-This module parses that subset from scratch into a small expression AST;
-:mod:`.frontend` lowers the AST into per-table filters + a join graph.
+The Star Schema Benchmark's queries add select items ``SUM(<expr>)``,
+``<expr>`` columns joined by ``*`` and ``-``, and the clauses
+``GROUP BY col, ...`` and ``ORDER BY <col|alias> [ASC|DESC], ...`` after
+WHERE. This module parses that subset from scratch into a small expression
+AST; :mod:`.frontend` lowers the AST into per-table filters + a join graph.
 """
 
 from __future__ import annotations
@@ -25,14 +28,15 @@ _TOKEN_RE = re.compile(
   | (?P<number>-?\d+(?:\.\d+)?)
   | (?P<ident>[A-Za-z_][A-Za-z_0-9]*(?:\.[A-Za-z_][A-Za-z_0-9]*)?)
   | (?P<op><>|!=|<=|>=|=|<|>)
-  | (?P<punct>[(),;])
+  | (?P<punct>[(),;*-])
     """,
     re.VERBOSE,
 )
 
 _KEYWORDS = {
     "select", "from", "where", "and", "or", "not", "like", "between",
-    "in", "is", "null", "as", "min",
+    "in", "is", "null", "as", "min", "sum", "group", "order", "by", "asc",
+    "desc",
 }
 
 
@@ -120,10 +124,43 @@ Expr = Union[Compare, Like, Between, InList, IsNull, BoolOp, NotOp]
 
 
 @dataclasses.dataclass
+class Arith:
+    """``left op right`` between columns of a select item (op ``*`` or
+    ``-``)."""
+
+    op: str
+    left: Union[ColumnRef, "Arith"]
+    right: Union[ColumnRef, "Arith"]
+
+
+@dataclasses.dataclass
 class SelectItem:
-    column: ColumnRef
-    aggregate: Optional[str] = None  # 'MIN' or None
+    column: Optional[ColumnRef]  # None for an expression item
+    aggregate: Optional[str] = None  # 'MIN', 'SUM' or None
     alias: Optional[str] = None
+    #: the item's expression where it is not one plain column (``SUM``'s
+    #: argument, which may be one column)
+    expr: Optional[Union[ColumnRef, Arith]] = dataclasses.field(
+        default=None, repr=False)
+
+    def columns(self) -> List[ColumnRef]:
+        """The columns the item reads, left to right."""
+        if self.expr is None:
+            return [self.column]
+        out, todo = [], [self.expr]
+        while todo:
+            node = todo.pop()
+            if isinstance(node, Arith):
+                todo += [node.right, node.left]
+            else:
+                out.append(node)
+        return out
+
+
+@dataclasses.dataclass
+class OrderItem:
+    ref: ColumnRef  # a column, or (unqualified) a select item's alias
+    descending: bool = False
 
 
 @dataclasses.dataclass
@@ -131,6 +168,10 @@ class SelectStatement:
     select_list: List[SelectItem]
     tables: List[Tuple[str, Optional[str]]]  # (table_name, alias)
     where: Optional[Expr]
+    group_by: List[ColumnRef] = dataclasses.field(default_factory=list,
+                                                  repr=False)
+    order_by: List[OrderItem] = dataclasses.field(default_factory=list,
+                                                  repr=False)
 
 
 # -- recursive-descent parser ---------------------------------------------------
@@ -179,25 +220,65 @@ class _Parser:
         where = None
         if self.accept("keyword", "where"):
             where = self.parse_or()
+        group_by: List[ColumnRef] = []
+        if self.accept("keyword", "group"):
+            self.expect("keyword", "by")
+            group_by.append(self.parse_column_ref())
+            while self.accept("punct", ","):
+                group_by.append(self.parse_column_ref())
+        order_by: List[OrderItem] = []
+        if self.accept("keyword", "order"):
+            self.expect("keyword", "by")
+            order_by.append(self.parse_order_item())
+            while self.accept("punct", ","):
+                order_by.append(self.parse_order_item())
         self.accept("punct", ";")
         if self.peek() is not None:
             raise SyntaxError(f"trailing tokens: {self.peek()}")
-        return SelectStatement(items, tables, where)
+        return SelectStatement(items, tables, where, group_by, order_by)
+
+    def parse_alias(self) -> Optional[str]:
+        if self.accept("keyword", "as"):
+            return self.next().value
+        return None
 
     def parse_select_item(self) -> SelectItem:
         if self.accept("keyword", "min"):
             self.expect("punct", "(")
             col = self.parse_column_ref()
             self.expect("punct", ")")
-            alias = None
-            if self.accept("keyword", "as"):
-                alias = self.next().value
-            return SelectItem(col, aggregate="MIN", alias=alias)
-        col = self.parse_column_ref()
-        alias = None
-        if self.accept("keyword", "as"):
-            alias = self.next().value
-        return SelectItem(col, alias=alias)
+            return SelectItem(col, aggregate="MIN", alias=self.parse_alias())
+        if self.accept("keyword", "sum"):
+            self.expect("punct", "(")
+            expr = self.parse_arith()
+            self.expect("punct", ")")
+            return SelectItem(None, aggregate="SUM", alias=self.parse_alias(),
+                              expr=expr)
+        expr = self.parse_arith()
+        if isinstance(expr, Arith):
+            return SelectItem(None, alias=self.parse_alias(), expr=expr)
+        return SelectItem(expr, alias=self.parse_alias())
+
+    def parse_arith(self) -> Union[ColumnRef, Arith]:
+        """Columns joined by ``-`` and ``*`` (``*`` binds tighter), left
+        to right."""
+        left = self.parse_product()
+        while self.accept("punct", "-"):
+            left = Arith("-", left, self.parse_product())
+        return left
+
+    def parse_product(self) -> Union[ColumnRef, Arith]:
+        left = self.parse_column_ref()
+        while self.accept("punct", "*"):
+            left = Arith("*", left, self.parse_column_ref())
+        return left
+
+    def parse_order_item(self) -> OrderItem:
+        ref = self.parse_column_ref()
+        if self.accept("keyword", "desc"):
+            return OrderItem(ref, True)
+        self.accept("keyword", "asc")
+        return OrderItem(ref)
 
     def parse_table(self) -> Tuple[str, Optional[str]]:
         name = self.expect("ident").value

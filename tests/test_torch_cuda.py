@@ -573,6 +573,31 @@ def job_plans(cuda_device):
 
 
 @pytest.mark.cuda
+def test_fused_node_device_time_on_card(job_plans):
+    """On the card a warm fused run leaves one positive stream time a join
+    node (``node_device_ms``) beside its shape, and the node's
+    ``fused.node`` span carries the same number as ``device_ms``."""
+    from radixjoin_tpu_torch import trace
+
+    plans, _fused_results, ctx = job_plans
+    for name, plan in plans.items():
+        rt.execute(plan, ctx)
+        trace.start()
+        try:
+            rt.execute(plan, ctx)
+        finally:
+            log = trace.stop()
+        stats = plan._last_exec_stats
+        joins = set(plan._fused_struct_cache[1].strategies())
+        assert set(stats["node_device_ms"]) == set(stats["node_shapes"]) \
+            == joins, name
+        assert all(ms > 0 for ms in stats["node_device_ms"].values()), name
+        spans = {sp.attrs["node"]: sp.attrs["device_ms"]
+                 for sp in log.spans if sp.name == "fused.node"}
+        assert spans == stats["node_device_ms"], name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["s1", "f64"])
 def test_stepwise_on_card_equals_fused(job_plans, shape, monkeypatch):
     plans, fused_results, ctx = job_plans

@@ -187,8 +187,71 @@ def test_fused_request_spans_every_layer(tables):
     want = {}
     for strategy in strategies.values():
         want[f"join.{strategy}"] = want.get(f"join.{strategy}", 0) + 1
+    # the joins by strategy; their rows (join.probe_rows.<strategy>,
+    # join.out_rows.<strategy>) are held to node_shapes below
     assert {k: v for k, v in req.counters.items()
-            if k.startswith("join.")} == want
+            if k.startswith("join.") and k.count(".") == 1} == want
+
+
+def test_fused_leaves_node_shapes_and_no_device_time_on_the_cpu(tables):
+    """The fused route leaves every join's shape in ``_last_exec_stats``
+    with live row counts (a scan child's rows, a join child's exact total),
+    counts the rows by strategy, and on the CPU no ``node_device_ms`` nor a
+    span's ``device_ms``: there are no events to read."""
+    plan, ctx = _plan(tables), port.build_context("cpu")
+    port.execute(plan, ctx)
+    _result, log, _wall = _traced(lambda: port.execute(plan, ctx))
+    stats = plan._last_exec_stats
+    assert "node_device_ms" not in stats
+    shapes = stats["node_shapes"]
+    structure = plan._fused_struct_cache[1]
+    assert set(shapes) == set(structure.strategies())
+    totals = plan._last_join_totals
+    for node_id, shape in shapes.items():
+        assert set(shape) == {"strategy", "probe_rows", "build_rows",
+                              "key_bytes", "out_rows", "out_col_bytes"}
+        j = plan.nodes[node_id].data
+        build, probe = ((j.left, j.right) if j.build_left
+                        else (j.right, j.left))
+        for child, key in ((build, "build_rows"), (probe, "probe_rows")):
+            want = (totals[child] if child in totals else
+                    plan.inputs[plan.nodes[child].data.base_table_id].num_rows)
+            assert shape[key] == want
+        assert shape["strategy"] == structure.strategies()[node_id]
+        assert shape["out_rows"] == totals[node_id]
+        assert shape["key_bytes"] == 4
+        assert shape["out_col_bytes"] == [4] * len(
+            plan.nodes[node_id].output_attrs)
+    assert shapes[plan.root]["out_rows"] == _result.num_rows
+    # live rows, not pads: some join reads fewer rows than its pad
+    assert any(s["probe_rows"] < structure.join_specs[n].out_pad
+               for n, s in shapes.items())
+    assert all("device_ms" not in sp.attrs
+               for sp in log.spans if sp.name == "fused.node")
+    (req,) = log.requests
+    for kind in ("probe_rows", "out_rows"):
+        want = {}
+        for shape in shapes.values():
+            key = f"join.{kind}.{shape['strategy']}"
+            want[key] = want.get(key, 0) + shape[kind]
+        assert {k: v for k, v in req.counters.items()
+                if k.startswith(f"join.{kind}.")} == want
+
+
+def test_fused_run_returns_its_own_node_marks(tables):
+    """Each fused run hands its joins' marks back to its caller: two runs
+    of one cached structure (one plan object run twice at once, as
+    ``execute_many`` may) share no mark, and the structure keeps none."""
+    plan, ctx = _plan(tables), port.build_context("cpu")
+    port.execute(plan, ctx)
+    structure = plan._fused_struct_cache[1]
+    *_first_out, first = fused.run(structure)
+    *_second_out, second = fused.run(structure)
+    assert [m.node for m in first] == [m.node for m in second] \
+        == structure.join_order
+    assert all(a is not b for a, b in zip(first, second))
+    assert all(m.start is None and m.end is None for m in first + second)
+    assert not hasattr(structure, "node_marks")
 
 
 def test_first_run_uploads_under_upload_spans(tables):
