@@ -55,6 +55,14 @@ Phases (any failure exits non-zero; the last line of standard output is
    infinities) at n = 0, 1, R - 1, R, R + 1 and 5,000 and with every row
    NULL, then 20 columns of mixed widths (two launches), views one
    element off 16 bytes, and on a side stream; it reports its launches.
+   ``unique_probe`` (no Pallas original: the slot-table probe of the
+   unique-key join and its compaction) runs at the SSB drill-down's first
+   join at SF 20 (2^27 probe rows, 120 M live, a 2^20-slot window one slot
+   in 1,000 filled): compacted to the learned pad and to half the matches,
+   probe-shaped, and with INT64 keys, each bit-equal to its plain version
+   and timed (event bracket, profiler device time, bound), with the plain
+   version's time and ``torch.nonzero`` + ``index_select`` of the
+   compaction alone as the library yardstick.
    The resident gathers also run with unaligned index and table views,
    with one tile, and with sequential positions on the L2 route (the
    index and output streams alone: what remains of the random-position
@@ -73,9 +81,14 @@ Phases (any failure exits non-zero; the last line of standard output is
    row multisets, the root cardinality against a numpy count over the
    base tables, the join strategies covered (merge included), a launch
    count above 0 for every kernel of the path, ``owner_recovery``
-   launched by each warm S1, S2 and S3, ``cummax_i32`` by the warm S3
-   (its root is the merge join), and ``encode_pages_aligned`` once for
-   each fixed-width root column by every warm plan.
+   and ``unique_probe`` launched by each warm S1, S2 and S3,
+   ``cummax_i32`` by the warm S3 (its root is the merge join), and
+   ``encode_pages_aligned`` once for each fixed-width root column by every
+   warm plan. None of S1-S3 learns a pad for a unique-key node (their
+   joins are unfiltered), so SSB's Q2.3 at SF 0.01 runs twice on the
+   card: the warm run must compact a unique-key node inside
+   ``unique_probe`` (``join.unique_probe.compacted`` rises, the kernel
+   launches) and give the CPU route's rows.
 4. Device-time path: with the counters set to 0 just before, every case
    of ``harness/devtime.py`` at ``--devtime-size`` rows (default 2^22),
    printed with its ms and share of the HBM figure, then the kernel cases
@@ -494,6 +507,7 @@ def check_kernels(torch, kernels, dev, seed: int):
     del tabs, mono, miss, views, wide, many
     check_owner_kernels(torch, kernels, dev, gen, case)
     check_page_encode(torch, kernels, dev, gen, case)
+    records["unique_probe"] = check_unique_probe(torch, kernels, dev, gen)
 
     # the device page decode's calls (PAGED_CASES, _decode_inputs). Beside
     # each case's event bracket, the host time to issue a call and the
@@ -985,6 +999,109 @@ def check_page_encode(torch, kernels, dev, gen, case) -> None:
          "in this phase")
 
 
+#: the SSB drill-down's first join at SF 20: lineorder's about 120 M rows
+#: in a 2^27-row pad probe a 2^20-slot dimension window (part's keys) of
+#: which one slot in 1,000 holds a row after the filter; the node's learned
+#: pad is the bucket of its about 120 K matches
+PROBE_PAD, PROBE_LIVE, PROBE_SLOTS, PROBE_HIT = 1 << 27, 120_000_000, 1 << 20, 1e-3
+
+
+def check_unique_probe(torch, kernels, dev, gen) -> dict:
+    """Phase 2's row 11: ``unique_probe`` against its plain version, bit
+    for bit, at the SSB drill-down's shape (:data:`PROBE_PAD`), compacted
+    to the learned pad (a dead tail), to half the matches (rows dropped)
+    and probe-shaped, INT32 keys, then compacted with INT64 keys. Timed:
+    the event bracket and the profiler's device time beside the bound
+    (each key and validity byte read once, the outputs written once), the
+    plain version (the torch composition the port ran before the kernel,
+    with the JAX formulation's owner recovery), and, as the library
+    yardstick of the compaction alone, ``torch.nonzero`` + ``index_select``
+    over the probe-shaped mask and build rows. Returns the record of the
+    compacted INT32 case."""
+    from radixjoin_tpu_torch.harness.kernel_timing import (bracket_ms,
+                                                           device_ms)
+
+    name = "unique_probe"
+    before = kernels.launch_counts()[name]
+    base = 1
+    slots = torch.full((PROBE_SLOTS,), -1, dtype=torch.int32, device=dev)
+    filled = torch.rand(PROBE_SLOTS, generator=gen, device=dev) < PROBE_HIT
+    slots[filled] = torch.randperm(int(filled.sum()), generator=gen,
+                                   device=dev).to(torch.int32)
+    keys = torch.zeros(PROBE_PAD, dtype=torch.int32, device=dev)
+    keys[:PROBE_LIVE] = torch.randint(base, base + PROBE_SLOTS,
+                                      (PROBE_LIVE,), generator=gen,
+                                      device=dev, dtype=torch.int32)
+    valid = torch.zeros(PROBE_PAD, dtype=torch.bool, device=dev)
+    valid[:PROBE_LIVE] = True
+    bidx, found, total = kernels.unique_probe(slots, keys, valid, base)
+    matches = int(total)
+    pad = 1 << max(matches - 1, 1).bit_length()
+    shape = (f"{PROBE_PAD} probe rows ({PROBE_LIVE} live), {PROBE_SLOTS} "
+             f"slots, {matches} matches, pad {pad}")
+    _log(f"kernel {name}: {shape}")
+    record = {"max_abs_err": 0.0}
+
+    def check(label, k, b, p):
+        got = kernels.unique_probe(slots, k, valid, b, p)
+        want = kernels.unique_probe_plain(slots, k, valid, b, p)
+        torch.cuda.synchronize()
+        if not all(g.dtype == w.dtype and torch.equal(g, w)
+                   for g, w in zip(got, want)):
+            _fail(f"{name} [{label}] disagrees with its plain version")
+        if int(got[-1]) != matches:
+            _fail(f"{name} [{label}]: total {int(got[-1])}, want {matches}")
+        del got, want
+        fn = (lambda: kernels.unique_probe(slots, k, valid, b, p))
+        ms = bracket_ms(fn)
+        dev_ms = device_ms(fn)
+        nbytes = kernels.least_bytes(name, slots, k, valid, p)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        share = (f", device {100.0 * bound_ms / dev_ms:.1f}% of it"
+                 if dev_ms else "")
+        _log(f"kernel {name} [{label}]: bit-equal, event {ms:.4f} ms, "
+             f"device {_device_ms_text(dev_ms)} (torch.profiler); bound "
+             f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), event at "
+             f"{100.0 * bound_ms / ms:.1f}%{share}")
+        return ms, dev_ms, bound_ms, nbytes
+
+    ms, dev_ms, bound_ms, nbytes = check(f"INT32 compacted, pad {pad}",
+                                         keys, base, pad)
+    check(f"INT32 compacted, pad {matches // 2}: rows dropped", keys, base,
+          max(matches // 2, 1))
+    check("INT32 probe-shaped", keys, base, 0)
+    plain_ms = bracket_ms(
+        lambda: kernels.unique_probe_plain(slots, keys, valid, base, pad),
+        runs=2, warmup=1)
+
+    def library():
+        idx = torch.nonzero(found).squeeze(1)
+        return idx, bidx.index_select(0, idx)
+
+    got = kernels.unique_probe(slots, keys, valid, base, pad)
+    lib = library()
+    if not (torch.equal(lib[0].to(torch.int32), got[0][:matches])
+            and torch.equal(lib[1], got[1][:matches])):
+        _fail(f"{name}: torch.nonzero + index_select disagrees")
+    del got, lib
+    library_ms = bracket_ms(library)
+    _log(f"kernel {name} [INT32 compacted, pad {pad}]: plain {plain_ms:.4f} "
+         f"ms, library (nonzero + index_select of the compaction alone) "
+         f"{library_ms:.4f} ms")
+    wide = keys.to(torch.int64) + ((3 << 40) - base)
+    check(f"INT64 keys past the int32 range, compacted, pad {pad}", wide,
+          3 << 40, pad)
+    del wide
+    torch.cuda.synchronize()
+    _log(f"kernel {name}: {kernels.launch_counts()[name] - before} launches "
+         "in this phase")
+    record.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  shape=f"INT32 compacted, {shape}", bound_ms=bound_ms,
+                  bound_bytes=nbytes, pct_of_bound=100.0 * bound_ms / ms,
+                  device_ms=dev_ms)
+    return record
+
+
 def _device_ms_text(ms) -> str:
     return f"{ms:.4f} ms" if ms else "not measured"
 
@@ -1337,6 +1454,8 @@ def run_main_path(torch, np, rt, kernels, args):
         _log(f"{name} warm kernel launches: {json.dumps(warm_launches[name])}")
         if not warm_launches[name]["owner_recovery"]:
             _fail(f"a warm {name} launched no owner_recovery")
+        if not warm_launches[name]["unique_probe"]:
+            _fail(f"a warm {name} launched no unique_probe")
     if not warm_launches["S3"]["cummax_i32"]:
         _fail("a warm S3 (the merge join) launched no cummax_i32")
     for name in plans:
@@ -1347,6 +1466,7 @@ def run_main_path(torch, np, rt, kernels, args):
             _fail(f"a warm {name} launched encode_pages_aligned "
                   f"{warm_launches[name]['encode_pages_aligned']} times for "
                   f"{fixed} fixed-width root columns")
+    check_ssb_compacting(torch, rt, kernels, ctx)
     for name, _build, _lazy in shapes:
         profile_warm(torch, rt, plans[name], ctx, name)
     return {
@@ -1362,9 +1482,46 @@ def run_main_path(torch, np, rt, kernels, args):
     }
 
 
+def check_ssb_compacting(torch, rt, kernels, ctx) -> None:
+    """SSB's Q2.3 at SF 0.01, twice on the card: once its first run has
+    learned the dimension probe's pad, the warm run compacts that
+    unique-key node inside ``unique_probe`` and gives the CPU route's
+    rows."""
+    from joinbench.configs import ssb_sf20 as ssb
+    from radixjoin_tpu_torch.ops import join as join_ops
+    from radixjoin_tpu_torch.storage.columnar import sorted_rows
+
+    tables = ssb.generate(2 ** 31 + 99, scale=0.01)
+    plan = ssb.build_plans(tables)["q2_3"]
+    want = sorted_rows(rt.execute(plan, rt.build_context("cpu"))
+                       .to_host().to_rows())
+    rt.execute(plan, ctx)  # learns the pads
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()["unique_probe"]
+    modes = join_ops.UNIQUE_PROBE_STATS.snapshot()
+    got = sorted_rows(rt.execute(plan, ctx).to_host().to_rows())
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()["unique_probe"] - before
+    moved = {k: v - modes[k]
+             for k, v in join_ops.UNIQUE_PROBE_STATS.snapshot().items()}
+    pads = [s.compact_pad for s in
+            plan._fused_struct_cache[1].join_specs.values()
+            if s.strategy == "unique_scatter"]
+    if got != want or not got:
+        _fail(f"SSB q2_3 warm: {len(got)} rows differ from the cpu route's "
+              f"{len(want)}")
+    if not launched or not moved["compacted"] or not any(pads):
+        _fail(f"SSB q2_3 warm: unique_probe launched {launched} times, "
+              f"nodes by mode {moved}, unique_scatter pads {pads}: no "
+              "node compacted inside the kernel")
+    _log(f"SSB q2_3 (SF 0.01) warm: {len(got)} rows equal to the cpu "
+         f"route's; unique_probe launched {launched} times, nodes by mode "
+         f"{json.dumps(moved)}, unique_scatter pads {pads}")
+
+
 #: kernels the engine's main path launches (S1-S3, F1)
 MAIN_PATH_KERNELS = ("window_gather", "blocked_window_gather_multi",
-                     "paged_window_gather", "owner_recovery")
+                     "paged_window_gather", "owner_recovery", "unique_probe")
 #: the merge join's run scans: launched on the main path by S3 and F1
 MERGE_PATH_KERNELS = ("cummax_i32",)
 #: kernels the device-time path launches (devtime cases, the three tools)
@@ -2994,6 +3151,12 @@ def main() -> None:
         "encode_pages_aligned": (
             "csrc/page_encode.cu",
             "radixjoin_tpu/storage/device_decode.py::encode_fixed_aligned"),
+        # no Pallas original: the XLA probe of the slot-table join and the
+        # owner recovery of the probe-shaped compaction
+        "unique_probe": (
+            "csrc/unique_probe.cu",
+            "radixjoin_tpu/ops/join.py::join_unique_scatter_impl + "
+            "radixjoin_tpu/plan/executor.py::_compact_probe_shaped"),
     }
     out = []
     for name, (src, replaces) in meta.items():

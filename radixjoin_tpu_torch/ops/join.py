@@ -5,7 +5,8 @@ The engine lowers every join of the fused executor's main path to one of
 the sort-free formulations below (plus the sort-based unique fallback):
 
 * :func:`join_unique_scatter_impl` — FK->PK through a dense key-window
-  slot table: memset + scatter + one gather, probe-shaped output;
+  slot table: memset + scatter + one probe pass, probe-shaped output or,
+  with a learned pad, its matches compacted to the pad in that pass;
 * :func:`join_unique_impl` — the same contract through a build-side sort
   and a binary search, for key windows too sparse for a slot table;
 * :func:`join_csr_impl` — general join against a CSR index (counts,
@@ -42,8 +43,8 @@ the monotone owner stream go through the hand-written kernels of
 :mod:`.kernels`; int64 payloads gather natively (no hi/lo planes). So do
 the owner recovery of every expansion (:func:`kernels.owner_recovery`: a
 sorted search of the slots among the offsets on the card, no sentinel
-slot) and the merge join's two run scans
-(:func:`kernels.cummax_i32`).
+slot), the merge join's two run scans (:func:`kernels.cummax_i32`) and
+the probe of the slot-table join (:func:`kernels.unique_probe`).
 """
 
 from __future__ import annotations
@@ -52,9 +53,15 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import trace
 from . import kernels
 
 MIN_BUCKET = 128
+
+#: slot-table join nodes by mode (``join.unique_probe.compacted`` /
+#: ``probe_shaped``), counted by :func:`join_unique_scatter_impl`
+UNIQUE_PROBE_STATS = trace.Counters("join.unique_probe",
+                                    ("compacted", "probe_shaped"))
 
 
 def gather_expand(src: torch.Tensor, pos: torch.Tensor,
@@ -160,34 +167,48 @@ def join_unique_impl(build_keys, build_valid, probe_keys, probe_valid):
     return bidx, found, total
 
 
+def _scatter_slots(build_keys, build_valid, base: int, r_pad: int):
+    """The slot table of a unique build side over the key window ``[base,
+    base + r_pad)``: ``slots[key - base]`` the row id of each valid build
+    row, -1 elsewhere (memset + scatter). Invalid rows (padding included) go
+    to a sentinel slot that is cut off; valid build keys are in-window by
+    construction of the caller."""
+    bp = build_keys.shape[0]
+    dev = build_keys.device
+    off_b64 = build_keys.long() - base
+    off_b = torch.where(build_valid, off_b64.clamp(0, r_pad), r_pad)
+    slots = torch.full((r_pad + 1,), -1, dtype=torch.int32, device=dev)
+    slots[off_b] = _iota(bp, dev)
+    return slots[:r_pad]
+
+
 def join_unique_scatter_impl(build_keys, build_valid, probe_keys,
-                             probe_valid, base: int, r_pad: int):
+                             probe_valid, base: int, r_pad: int,
+                             compact_pad: int = 0):
     """Sort-free FK->PK join via a dense key-range table.
 
     Applicable when the build side is unique and its valid keys lie in the
     static window ``[base, base + r_pad)`` (the executor derives it from
     host-side stats of the build scan). Each build row id is scattered into
-    ``slots[key - base]`` and probes look up with one gather:
-    memset(r_pad) + scatter(B) + gather(P). Out-of-window probe keys cannot
-    match. Returns ``(bidx, found, total)`` — probe-shaped, like
-    :func:`join_unique_impl`."""
-    bp = build_keys.shape[0]
-    dev = build_keys.device
-    off_b64 = build_keys.long() - base
-    # invalid rows (incl. padding) -> the sentinel slot r_pad; valid build
-    # keys are in-window by construction of the caller
-    off_b = torch.where(build_valid, off_b64.clamp(0, r_pad), r_pad)
-    slots = torch.full((r_pad + 1,), -1, dtype=torch.int32, device=dev)
-    slots[off_b] = _iota(bp, dev)
-    slots = slots[:r_pad]
-    off_p64 = probe_keys.long() - base
-    in_window = (off_p64 >= 0) & (off_p64 < r_pad)
-    off_p = off_p64.clamp(0, r_pad - 1).to(torch.int32)
-    (hit,) = gather_expand_multi([slots], off_p)
-    found = probe_valid & in_window & (hit >= 0)
-    bidx = torch.where(found, hit, 0)
-    total = found.sum(dtype=torch.int64)
-    return bidx, found, total
+    ``slots[key - base]`` and probes look up their slot:
+    memset(r_pad) + scatter(B) + one probe pass (:func:`kernels.unique_probe`).
+    Out-of-window probe keys cannot match.
+
+    ``compact_pad == 0``: returns ``(bidx, found, total)`` — probe-shaped,
+    like :func:`join_unique_impl`. ``compact_pad > 0`` (a learned pad):
+    the matches are compacted in the same pass, ``(pidx, bidx, live,
+    total)`` in ``compact_pad`` slots, the j-th match (in probe order) at
+    slot j, with the exact total (matches past the pad are dropped: the
+    caller detects ``total > compact_pad``). ``pidx`` is monotone and in
+    bounds across the whole pad, so the probe side's payloads ride the
+    blocked-window kernel; the dead tail repeats the last match (``live``
+    False there): the values of the probe-shaped join followed by
+    ``_compact_probe_shaped``'s owner recovery. Counts the node's mode in
+    :data:`UNIQUE_PROBE_STATS`."""
+    UNIQUE_PROBE_STATS.add("compacted" if compact_pad else "probe_shaped")
+    slots = _scatter_slots(build_keys, build_valid, base, r_pad)
+    return kernels.unique_probe(slots, probe_keys.contiguous(),
+                                probe_valid.contiguous(), base, compact_pad)
 
 
 def join_csr_impl(counts_w, starts_w, grouped, probe_keys, probe_valid,

@@ -29,6 +29,14 @@ packages (``csrc/page_encode.cu``):
   row-aligned 8 KiB pages (the fused executor's root columns, before the
   fetch).
 
+One does on the card what the JAX package writes as XLA ops around a slot
+table, held to its ``join_unique_scatter_impl`` and the owner recovery of
+its ``_compact_probe_shaped`` (``csrc/unique_probe.cu``):
+
+* :func:`unique_probe` — the probe of a unique-key join against its dense
+  key-window slot table, probe-shaped or, where the join node has a learned
+  output pad, compacted to its matches in the same pass.
+
 The four kernels of the in-kernel gather experiments (``tools/``) follow:
 
 * :func:`pallas_gather`, :func:`gather_pallas_vmem` and :func:`mk_gather`
@@ -116,6 +124,9 @@ _SIGNATURES = {
                            _I32, _VP],
     "rjt_cummax_i32": [_I32, _VP, _VP, _I64, _VP, _I64, _VP],
     "rjt_encode_pages": [_I32, _I32, _VP, _VP, _VP, _VP, _I64, _VP],
+    "rjt_unique_probe": [_I32, _VP, _I32, _VP, _I64, _VP, _I64, _I64, _VP,
+                         _I64, _VP, _VP, _VP, _I64, _VP, _VP, _I64, _I32,
+                         _VP],
 }
 
 _lock = threading.Lock()
@@ -235,7 +246,9 @@ def least_bytes(name: str, *args) -> int:
     ``(x,)``, ``encode_pages_aligned`` ``(values, valids, n, dtypes)``
     (the first ``n`` rows of each column read, its pages written), the
     resident gathers and ``onehot_gather`` ``(table,
-    idx)``."""
+    idx)``, ``unique_probe`` ``(slots, keys, valid, compact_pad)`` (each key
+    and validity byte read, the outputs written; the slot lookups, which
+    depend on the values, left out, so this is a lower bound)."""
     if name == "window_gather":
         tables, idx = args
         n, w = idx.numel(), tables[0].shape[0]
@@ -266,6 +279,11 @@ def least_bytes(name: str, *args) -> int:
                 "onehot_gather"):
         table, idx = args
         return 4 * table.numel() + 2 * 4 * idx.numel()
+    if name == "unique_probe":
+        _slots, keys, valid, compact_pad = args
+        out = compact_pad * 9 if compact_pad else keys.numel() * 5
+        return keys.numel() * (keys.element_size() + valid.element_size()) \
+            + out + 8
     raise ValueError(f"least_bytes: unknown wrapper {name!r}")
 
 
@@ -1061,9 +1079,138 @@ def encode_pages_aligned(values, valids, n: int,
     return outs
 
 
+# ---------------------------------------------------------------------------
+# unique_probe
+# ---------------------------------------------------------------------------
+
+#: probe rows one tile of the compacting kernel takes at the least (256
+#: threads: csrc/unique_probe.cu); its scratch holds a status word a tile
+#: and the tile counter
+PROBE_TILE = 4096
+#: the widest key window whose bitmap of filled slots the kernel stages in
+#: shared memory (a bit a slot: 128 KiB)
+PROBE_BITS_MAX_SLOTS = 1 << 20
+#: the most probe rows :func:`unique_probe` takes on the card: a row + 1 and
+#: a count travel in 31 bits of a tile's status word
+PROBE_MAX = 2 ** 31 - 2
+
+
+def unique_probe_plain(slots: torch.Tensor, keys: torch.Tensor,
+                       valid: torch.Tensor, base: int, compact_pad: int = 0):
+    """Plain PyTorch version of :func:`unique_probe`: the probe of
+    ``join.join_unique_scatter_impl`` and, with a pad, the owner recovery
+    of ``plan.executor._compact_probe_shaped`` along the matches."""
+    r_pad = slots.shape[0]
+    off = keys.long() - base
+    in_window = (off >= 0) & (off < r_pad)
+    hit = slots.index_select(0, off.clamp(0, r_pad - 1))
+    found = valid & in_window & (hit >= 0)
+    bidx = torch.where(found, hit, 0)
+    total = found.sum(dtype=torch.int64)
+    if not compact_pad:
+        return bidx, found, total
+    counts = found.to(torch.int64)
+    pidx = owner_recovery_plain(torch.cumsum(counts, 0) - counts, total,
+                                compact_pad)
+    live = torch.arange(compact_pad, device=keys.device) < total
+    return pidx, bidx.index_select(0, pidx), live, total
+
+
+def unique_probe(slots: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
+                 base: int, compact_pad: int = 0):
+    """The probe of a unique-key join against its slot table (``slots[k -
+    base]`` the build row of key k, -1 where none; ``r_pad`` =
+    ``len(slots)``). A probe row matches where its key is valid, ``0 <= key
+    - base < r_pad`` and the slot holds a build row.
+
+    ``compact_pad == 0``: ``(bidx, found, total)``, probe-shaped: the build
+    row of each probe row (0 where it does not match), the match mask and
+    the exact match count (int64), as ``join.join_unique_scatter_impl``
+    returns them.
+
+    ``compact_pad > 0``: ``(pidx, bidx, live, total)`` in ``compact_pad``
+    slots: the matches in probe order (probe row, int32 and monotone; build
+    row), ``live`` below ``total``, and the exact count, also past the pad
+    (those matches are dropped; the caller detects it from ``total``). The
+    dead tail holds the last match's probe and build rows (0 and 0 without a
+    match): the values of ``_compact_probe_shaped``'s owner recovery.
+
+    ``keys`` is 1-D int32 or int64, ``valid`` 1-D bool of the same length,
+    ``slots`` 1-D int32, all contiguous on one device. On the card one
+    probe kernel on the current stream (``csrc/unique_probe.cu``) reads
+    each key and validity byte once; with a pad it compacts in the same
+    pass (a decoupled look-back over tiles of rows). Where the window has
+    at most :data:`PROBE_BITS_MAX_SLOTS` slots, a first small kernel makes
+    a bitmap of the filled slots, which the probe stages in shared memory,
+    so that only rows whose bit is set read the table. No host sync. At
+    most :data:`PROBE_MAX` probe rows."""
+    name = "unique_probe"
+    if slots.dtype != torch.int32 or slots.dim() != 1 or slots.shape[0] == 0:
+        raise TypeError(f"{name}: slots must be a non-empty 1-D int32 tensor")
+    if keys.dtype not in (torch.int32, torch.int64) or keys.dim() != 1:
+        raise TypeError(f"{name}: keys must be a 1-D int32 or int64 tensor")
+    if valid.dtype != torch.bool or valid.shape != keys.shape:
+        raise TypeError(f"{name}: valid must be a bool tensor shaped like "
+                        "keys")
+    device = keys.device
+    if slots.device != device or valid.device != device:
+        raise ValueError(f"{name}: tensors on more than one device")
+    if not (slots.is_contiguous() and keys.is_contiguous()
+            and valid.is_contiguous()):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    compact_pad = int(compact_pad)
+    n = keys.shape[0]
+    if compact_pad < 0:
+        raise ValueError(f"{name}: compact_pad must be >= 0, got "
+                         f"{compact_pad}")
+    if compact_pad and n == 0:
+        raise ValueError(f"{name}: no probe rows to compact")
+    if device.type == "cpu":
+        return unique_probe_plain(slots, keys, valid, base, compact_pad)
+    _cuda_or_raise(device, name)
+    if n > PROBE_MAX:
+        raise ValueError(f"{name}: at most {PROBE_MAX} probe rows on the card")
+    lib = build()
+    total = torch.empty((), dtype=torch.int64, device=device)
+    rows = compact_pad or n
+    # (pidx, bidx, live) at the pad, or (bidx, found) at the probe's rows
+    out = [torch.empty(rows, dtype=torch.int32, device=device)
+           for _ in range(2 if compact_pad else 1)]
+    out += [torch.empty(rows, dtype=torch.bool, device=device), total]
+    if n == 0:
+        total.zero_()
+        return tuple(out)
+    # the compaction's status word a tile and tile counter; the bitmap
+    scratch = (torch.empty(-(-n // PROBE_TILE) + 1, dtype=torch.int64,
+                           device=device) if compact_pad else None)
+    r_pad = slots.shape[0]
+    bits = (torch.empty(-(-r_pad // 128) * 4, dtype=torch.int32,
+                        device=device)
+            if r_pad <= PROBE_BITS_MAX_SLOTS else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.rjt_unique_probe(
+        _index(device), keys.data_ptr(), int(keys.dtype == torch.int64),
+        valid.data_ptr(), n, slots.data_ptr(), r_pad, int(base), ptr(bits),
+        0 if bits is None else bits.shape[0], out[0].data_ptr(),
+        ptr(out[1]) if compact_pad else None, out[-2].data_ptr(),
+        compact_pad, total.data_ptr(), ptr(scratch),
+        0 if scratch is None else scratch.shape[0],
+        _device_limits(device)[0], _stream(device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    _count_launch(unique_probe)
+    if trace.ON:
+        _count_least_bytes(unique_probe, slots, keys, valid, compact_pad)
+    return tuple(out)
+
+
 _WRAPPERS = (window_gather, blocked_window_gather_multi, paged_window_gather,
              pallas_gather, gather_pallas_vmem, mk_gather, onehot_gather,
-             owner_recovery, cummax_i32, encode_pages_aligned)
+             owner_recovery, cummax_i32, encode_pages_aligned, unique_probe)
 reset_launch_counts()
 for _fn in (paged_window_gather, pallas_gather, gather_pallas_vmem,
             mk_gather):

@@ -421,6 +421,14 @@ def _run_join(structure: FusedPlan, spec: _JoinSpec, tables):
         pidx = torch.zeros(spec.out_pad, dtype=torch.int32, device=dev)
         live = torch.zeros(spec.out_pad, dtype=torch.bool, device=dev)
         total = torch.zeros((), dtype=torch.int64, device=dev)
+    elif spec.strategy == "unique_scatter" and spec.compact_pad:
+        # the probe compacts its matches to the learned pad in the same
+        # pass: the payloads are gathered at the pad, never at probe size
+        (base,) = aux_args[spec.aux_id]
+        pidx, bidx, live, total = join_ops.join_unique_scatter_impl(
+            kb, vb, kp, vp, base, spec.r_pad, spec.compact_pad
+        )
+        monotone = pidx
     elif spec.strategy == "unique_scatter":
         (base,) = aux_args[spec.aux_id]
         bidx, live, total = join_ops.join_unique_scatter_impl(
@@ -507,7 +515,7 @@ def _run_join(structure: FusedPlan, spec: _JoinSpec, tables):
         )
         gathered.update(zip(keys, g))
     out_cols = [gathered[key] for key in spec.out_cols]
-    if spec.compact_pad:
+    if spec.compact_pad and pidx is None:
         # cardinality feedback: compact the probe-shaped output to its
         # learned size, so every downstream stage runs at live-row scale
         out_cols = list(

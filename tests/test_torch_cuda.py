@@ -350,7 +350,11 @@ def test_job_shape_on_card_matches_cpu(cuda_device, shape, lazy):
     assert got.num_rows == want.num_rows
     for a, b in zip(_sorted_rows(_columns(got)), _sorted_rows(_columns(want))):
         np.testing.assert_array_equal(a, b)
-    assert launched["window_gather"] > 0
+    # the unique-key joins probe through unique_probe (the small
+    # dimensions' slot lookups with them); S1's small build tables'
+    # payloads ride window_gather
+    assert launched["unique_probe"] > 0
+    assert (launched["window_gather"] > 0) == (shape == "s1")
     assert launched["blocked_window_gather_multi"] > 0
     assert (launched["paged_window_gather"] > 0) == (not lazy)
     # the root's fixed-width columns leave the card as row-aligned pages
@@ -809,8 +813,11 @@ def test_shared_mode_on_card_equals_fused_and_cpu(job_plans, shape,
     assert plan._last_join_totals == fused_totals
     assert getattr(plan, "_fused_struct_cache", None) is None
     assert launched["blocked_window_gather_multi"] > 0
-    # F1 is one merge join: its lookups all ride the blocked-window kernel
-    assert (launched["window_gather"] > 0) == (shape != "f64")
+    # F1 is one merge join: its lookups all ride the blocked-window kernel;
+    # the others' unique-key joins probe through unique_probe, and S1's
+    # small build tables' payloads ride window_gather
+    assert (launched["unique_probe"] > 0) == (shape != "f64")
+    assert (launched["window_gather"] > 0) == (shape == "s1")
     assert (launched["paged_window_gather"] > 0) == (shape == "s1")
     paths = wave.path_stats()
     assert sum(paths.values()) > 0
@@ -1560,3 +1567,158 @@ def test_cuda_encode_pages_on_a_side_stream_with_no_host_sync(cuda_device):
     torch.cuda.synchronize()
     for pages in got:
         assert all(torch.equal(g, w) for g, w in zip(pages, want))
+
+
+# ---------------------------------------------------------------------------
+# unique_probe: the slot-table probe, probe-shaped and compacted
+# ---------------------------------------------------------------------------
+
+
+def _probe_inputs(dev, n, dtype, hit_share, seed=0, r_pad=1 << 20):
+    """A slot table of ``r_pad`` entries with ``hit_share`` of them holding
+    a build row, and ``n`` probe keys over the window and 50 past each end
+    (int64 keys beyond the int32 range), 90% valid."""
+    rng = np.random.default_rng([n, seed, int(hit_share * 1000)])
+    base = (3 << 40) if dtype == np.int64 else -12_345
+    slots = np.full(r_pad, -1, dtype=np.int32)
+    filled = rng.random(r_pad) < hit_share
+    slots[filled] = rng.permutation(int(filled.sum())).astype(np.int32)
+    keys = (base + rng.integers(-50, r_pad + 50, n)).astype(dtype)
+    valid = rng.random(n) < 0.9
+    return (torch.from_numpy(slots).to(dev), torch.from_numpy(keys).to(dev),
+            torch.from_numpy(valid).to(dev), base)
+
+
+def _probe_both(slots, keys, valid, base, pad):
+    """The kernel's outputs on the card and the plain version's on the
+    CPU copies."""
+    got = kernels.unique_probe(slots, keys, valid, base, pad)
+    torch.cuda.synchronize()
+    want = kernels.unique_probe_plain(slots.cpu(), keys.cpu(), valid.cpu(),
+                                      base, pad)
+    return [g.cpu() for g in got], want
+
+
+def _probe_pad(total, kind):
+    return {"probe_shaped": 0, "dead_tail": 2 * total + 4099,
+            "overflow": max(total // 2, 1)}[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["probe_shaped", "dead_tail", "overflow"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [1 << 20, 1 << 24])
+def test_cuda_unique_probe_matches_plain(cuda_device, n, dtype, kind):
+    for hit_share in (0.001, 0.5):
+        slots, keys, valid, base = _probe_inputs(cuda_device, n, dtype,
+                                                 hit_share)
+        total = int(kernels.unique_probe_plain(slots, keys, valid, base)[2])
+        pad = _probe_pad(total, kind)
+        kernels.reset_launch_counts()
+        got, want = _probe_both(slots, keys, valid, base, pad)
+        assert kernels.launch_counts()["unique_probe"] == 1
+        assert [g.dtype for g in got] == [w.dtype for w in want]
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (hit_share, kind)
+        assert int(got[-1]) == total > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["no_match", "all_match", "one_row",
+                                  "ragged_views", "empty_build"])
+def test_cuda_unique_probe_edges(cuda_device, case):
+    dev = cuda_device
+    n = {"one_row": 1, "ragged_views": (1 << 20) + 4099}.get(case, 100_003)
+    slots, keys, valid, base = _probe_inputs(dev, n + 1, np.int64, 0.3,
+                                             seed=3, r_pad=4096)
+    if case == "ragged_views":  # keys and validity one element off 16 bytes
+        keys, valid = keys[1:], valid[1:]
+        assert keys.data_ptr() % 16 and valid.data_ptr() % 4
+    else:
+        keys, valid = keys[:n].clone(), valid[:n].clone()
+    if case == "no_match":
+        keys = keys + 10_000
+    if case == "all_match":
+        hits = torch.nonzero(slots >= 0).flatten()
+        keys = base + hits[torch.arange(n, device=dev) % hits.numel()]
+        valid = torch.ones_like(valid)
+    if case == "empty_build":
+        slots = torch.full_like(slots, -1)
+    total = int(kernels.unique_probe_plain(slots, keys, valid, base)[2])
+    for pad in (0, 1, 2 * total + 7, max(total // 3, 1)):
+        got, want = _probe_both(slots, keys, valid, base, pad)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (case, pad)
+    if case in ("no_match", "empty_build"):
+        assert total == 0
+    if case == "all_match":
+        assert total == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_cuda_unique_probe_windows_in_turn(cuda_device, dtype):
+    """Windows of every size in turn through one kernel instance: staged
+    bitmaps of 128 KiB, 512 bytes and 8 KiB, the widest again, and a window
+    past 2^20 slots (no bitmap), in both modes."""
+    for r_pad in (1 << 20, 1 << 12, 1 << 20, 1 << 16, 1 << 21, 1 << 12):
+        slots, keys, valid, base = _probe_inputs(cuda_device, 300_001, dtype,
+                                                 0.01, r_pad=r_pad)
+        total = int(kernels.unique_probe_plain(slots, keys, valid, base)[2])
+        for pad in (0, 2 * total + 1):
+            got, want = _probe_both(slots, keys, valid, base, pad)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                (r_pad, pad)
+
+
+@pytest.mark.cuda
+def test_cuda_unique_probe_side_stream_no_host_sync(cuda_device):
+    slots, keys, valid, base = _probe_inputs(cuda_device, 1 << 22, np.int32,
+                                             0.01)
+    total = int(kernels.unique_probe_plain(slots, keys, valid, base)[2])
+    want = [kernels.unique_probe_plain(slots, keys, valid, base, pad)
+            for pad in (0, total // 2, 2 * total)]
+    kernels.unique_probe(slots, keys, valid, base, 8)  # built
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(side):
+            got = [kernels.unique_probe(slots, keys, valid, base, pad)
+                   for pad in (0, total // 2, 2 * total) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    for i, outs in enumerate(got):
+        assert all(torch.equal(g, w) for g, w in zip(outs, want[i // 3]))
+
+
+@pytest.mark.cuda
+def test_cuda_ssb_plan_probes_through_the_kernel(cuda_device):
+    """SSB's Q2.3 at scale 0.01: once its first run has learned the
+    dimension probe's pad, a run on the card compacts that node in the
+    kernel (``join.unique_probe.compacted``), and its rows equal the CPU
+    route's."""
+    from joinbench.configs import ssb_sf20 as ssb
+    from radixjoin_tpu_torch.ops import join as join_ops
+    from radixjoin_tpu_torch.storage.columnar import sorted_rows
+
+    tables = ssb.generate(2 ** 31 + 99, scale=0.01)
+    plan = ssb.build_plans(tables)["q2_3"]
+    want = sorted_rows(rt.execute(plan, rt.build_context("cpu"))
+                       .to_host().to_rows())
+    ctx = rt.build_context()
+    rt.execute(plan, ctx)  # learns the pads
+    kernels.reset_launch_counts()
+    before = join_ops.UNIQUE_PROBE_STATS.snapshot()
+    got = sorted_rows(rt.execute(plan, ctx).to_host().to_rows())
+    torch.cuda.synchronize()
+    after = join_ops.UNIQUE_PROBE_STATS.snapshot()
+    assert got == want and len(got) > 0
+    assert kernels.launch_counts()["unique_probe"] >= 1
+    assert after["compacted"] > before["compacted"]
+    specs = plan._fused_struct_cache[1].join_specs.values()
+    assert any(s.strategy == "unique_scatter" and s.compact_pad
+               for s in specs)

@@ -305,4 +305,5 @@ def test_cpu_path_counts_no_launches():
         "paged_window_gather": 0, "pallas_gather": 0,
         "gather_pallas_vmem": 0, "mk_gather": 0, "onehot_gather": 0,
         "owner_recovery": 0, "cummax_i32": 0, "encode_pages_aligned": 0,
+        "unique_probe": 0,
     }

@@ -556,6 +556,14 @@ def test_least_bytes_covers_every_wrapper():
                 fn.__name__, values, valids, 4801,
                 [DataType.INT32, DataType.FP64]) == (
                 4801 * 5 + 3 * 8192 + 4801 * 9 + 6 * 8192)
+        elif fn.__name__ == "unique_probe":
+            # each key and validity byte read, the outputs and total written
+            keys = torch.zeros(5000, dtype=torch.int64)
+            valid = torch.zeros(5000, dtype=torch.bool)
+            assert kernels.least_bytes(fn.__name__, table, keys, valid,
+                                       0) == 5000 * 9 + 5000 * 5 + 8
+            assert kernels.least_bytes(fn.__name__, table, keys, valid,
+                                       256) == 5000 * 9 + 256 * 9 + 8
         elif fn.__name__ not in LEAST_BYTES_CASES:
             assert kernels.least_bytes(fn.__name__, table, idx) == (
                 4 * (1 << 12) + 8 * (1 << 13))
