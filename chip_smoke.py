@@ -119,19 +119,12 @@ Phases (any failure exits non-zero; the last line of standard output is
       ``torch.cuda.OutOfMemoryError`` (from here; the package has no such
       switch): ``oom_retries == 1``, result equal.
 
-6. The wave executor, the strategy knobs and the SQL entry point, on the
+6. The declined plan, the strategy knobs and the SQL entry point, on the
    card, with the counters set to 0 just before and read just after:
-   a. S1, S2, S3 and F1 under ``RJT_EXEC_MODE=shared``, on fresh plan
-      objects over phase 3's tables, cold and warm: rows and per-join
-      totals equal to phase 3's fused results; per plan the ms beside the
-      fused warm ms, the shrink syncs and fetch rounds, the host syncs that
-      torch's sync debug mode saw in the warm run beside the tensors the
-      executor fetched, the ``path_stats()`` and ``sync_stats()`` deltas
-      and the peak device memory; all three engine kernels launched;
-   b. the VARCHAR-key query document in ``auto`` mode with the fused
-      lowering made to decline (from here): served by ``execute_shared``,
-      rows equal to the oracles';
-   c. the query documents of ``harness/job_shapes.py`` written to a
+   a. the VARCHAR-key query document in ``auto`` mode with the fused
+      lowering made to decline (from here): served by the stepwise
+      executor (``engine.execute_device``), rows equal to the oracles';
+   b. the query documents of ``harness/job_shapes.py`` written to a
       temporary directory and run through ``JobHarness`` over the
       query-aware synthetic IMDB (filters applied by
       ``ingest.filter_table``), with lazy inputs and with
@@ -139,11 +132,8 @@ Phases (any failure exits non-zero; the last line of standard output is
       the rewritten SQL and to the same query on ``build_context("cpu")``;
       equal to the row-by-row plan oracle where the plan's inputs hold
       fewer than a million rows, and all of them again, through
-      ``verify_result`` (both oracles), at a tenth of the scale; the JOB
-      6a-shaped document on the wave executor under
-      ``RJT_SHRINK_MAX_SYNCS=2`` with the shrink's copy on and off (peak
-      device memory of both);
-   d. each knob against its default on S2 and S3 (``RJT_CSR_JOIN=off``,
+      ``verify_result`` (both oracles), at a tenth of the scale;
+   c. each knob against its default on S2 and S3 (``RJT_CSR_JOIN=off``,
       ``RJT_DEV_CSR=off``, ``RJT_UNIQUE_JOIN=sort``, ``RJT_BIG_MERGE`` at
       2^21 and 2^30, ``RJT_CARD_FEEDBACK=off``): rows equal, the
       strategies the structure took, warm ms.
@@ -177,14 +167,14 @@ Phases (any failure exits non-zero; the last line of standard output is
    a. the bench (``python -m radixjoin_tpu_torch.bench``) as a subprocess
       over the query documents (``BENCH_PLANS=builtin``) at ``--scale``
       with its defaults (two passes, device ms, batch, the sf0.01
-      secondary pass): one JSON line whose result rows equal the rows 6c
+      secondary pass): one JSON line whose result rows equal the rows 6b
       verified against sqlite for the same documents, every degradation
       tally zero and every bonus stage reported, and rows 1 and 2
       (``window_gather``, ``blocked_window_gather_multi``) launched in
       its warm-up and timed passes (the bench's ``detail.launches``); its
       total, per-query best, batch wall, stage split and device ms logged;
    b. the fuzz campaign (``tools/fuzz_campaign.py``) in this process:
-      seeds 0-255 in all six modes (auto, shared, stepwise, spill, dist,
+      seeds 0-255 in all five modes (auto, stepwise, spill, dist,
       dist_chunked; the distributed ones cold and warm on a one-rank NCCL
       group), each run held to the row oracle;
    c. the roofline harness (``harness/roofline.py``) at 2^22 probe rows:
@@ -207,9 +197,9 @@ Phases (any failure exits non-zero; the last line of standard output is
       overflow retries, rows and the store's tallies; each condition's cold
       ms are summed up over the rounds (least, median, most). Checked: the
       rows (count, per-join totals, an order-free digest) equal in every
-      process and to phase 3's (S2) and 6c's (q6a); over a populated store
+      process and to phase 3's (S2) and 6b's (q6a); over a populated store
       one attempt; the others as many as the in-process cold runs of
-      phases 3 and 6c; no store read or written with the store off;
+      phases 3 and 6b; no store read or written with the store off;
    b. S1 (eager pages), S2, S3, F1 and the five documents as fresh plan
       objects, precompiled (``engine.precompile_fused``) from an 8-wide
       pool, each one's ms printed; then 6 threads executing their plans 3
@@ -218,17 +208,17 @@ Phases (any failure exits non-zero; the last line of standard output is
       and the kernels' launch counts equal to the sum of the threads' own;
    c. the bench over the documents, its warm-up in its pools, over a
       fresh store: warm-up phase seconds, suite total, device busy and
-      rows, the rows equal to 6c's.
+      rows, the rows equal to 6b's.
 
 Before the last line it prints one JSON object with a record per kernel:
 ``{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-"pct_of_bound", "launches_memory_batch", "launches_shared_sql",
+"pct_of_bound", "launches_memory_batch", "launches_sql",
 "launches_dist", "launches_bench", "launches_fuzz", "launches_roofline",
 "launches_scaling", "launches_tools", "launches_cold_start"}, ...]}``
 (``launches`` counts phase
 3 for the engine's five kernels and phase 4 for the others;
-``launches_memory_batch`` counts phase 5, ``launches_shared_sql`` phase 6,
+``launches_memory_batch`` counts phase 5, ``launches_sql`` phase 6,
 ``launches_dist`` phase 7; ``launches_bench`` counts 8a's warm-up and
 timed passes, ``launches_fuzz`` 8b, ``launches_roofline`` 8c (wrapper
 calls: a CUDA graph's replay launches again uncounted),
@@ -1810,7 +1800,7 @@ def run_memory_and_batch(torch, np, rt, kernels, main):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the wave executor, the strategy knobs, SQL to result
+# phase 6: the declined plan, the strategy knobs, SQL to result
 # ---------------------------------------------------------------------------
 
 
@@ -1819,21 +1809,18 @@ def _delta(after: dict, before: dict) -> dict:
             if v != before.get(k, 0)}
 
 
-def run_shared_and_sql(torch, np, rt, kernels, main, args):
+def run_knobs_and_sql(torch, np, rt, kernels, main, args):
     """Phase 6 (see the module docstring). Returns its launch counts and
     the query documents' data and sqlite results for phase 7d."""
     import tempfile
-    import warnings
 
     from radixjoin_tpu_torch import engine
     from radixjoin_tpu_torch.harness import datagen, job_shapes, oracle
     from radixjoin_tpu_torch.harness import run as harness_run
-    from radixjoin_tpu_torch.plan import executor as wave
     from radixjoin_tpu_torch.plan import fused as fz
     from radixjoin_tpu_torch.sql import ParsedSQL
 
     ctx, tables, warm = main["ctx"], main["tables"], main["warm"]
-    mib = float(1 << 20)
 
     def timed_execute(plan):
         return _timed_execute(torch, rt, plan, ctx)
@@ -1842,77 +1829,7 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     engine.reset_engine_stats()
     kernels.reset_launch_counts()
 
-    # 6a: the wave executor at full width
-    fetched = []
-    fetch = engine._fetch
-
-    def counting_fetch(tensors):
-        fetched.append(len(tensors))
-        return fetch(tensors)
-
-    for name, build, lazy in main["shapes"]:
-        plan = build(tables, lazy=lazy)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        paths, syncs = wave.path_stats(), wave.sync_stats()
-        line = []
-        with _Env(RJT_EXEC_MODE="shared"):
-            for run in ("cold", "warm"):
-                seen = []
-                del fetched[:]
-                engine._fetch = counting_fetch
-                torch.cuda.set_sync_debug_mode("warn" if run == "warm"
-                                               else "default")
-                try:
-                    with warnings.catch_warnings(record=True) as seen:
-                        warnings.simplefilter("always")
-                        res, ms = timed_execute(plan)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                    engine._fetch = fetch
-                if plan._last_join_totals != main["totals"][name]:
-                    _fail(f"6a shared {name} {run}: per-join totals "
-                          f"{plan._last_join_totals} != fused "
-                          f"{main['totals'][name]}")
-                if not _same_rows(np, res, warm[name]):
-                    _fail(f"6a shared {name} {run}: rows differ from the "
-                          f"fused result of phase 3")
-                if getattr(plan, "_fused_struct_cache", None) is not None:
-                    _fail(f"6a shared {name}: a fused structure was built")
-                stats = plan._last_exec_stats
-                line.append(
-                    f"{run} {ms:.1f} ms ({stats['shrink_syncs']} shrink "
-                    f"syncs, {stats['rounds']} fetch rounds, dispatch "
-                    f"{stats['dispatch_ms']:.1f} ms)")
-                if run == "warm":
-                    n_sync = sum("synchroniz" in str(w.message) for w in seen)
-                    line.append(f"host syncs seen by torch's sync debug mode "
-                                f"{n_sync} for {sum(fetched)} fetched "
-                                f"tensors")
-                    if stats["shrink_syncs"]:
-                        _fail(f"6a shared {name}: a warm run on the feedback "
-                              f"made {stats['shrink_syncs']} shrink syncs")
-                    if n_sync > sum(fetched) + 1:  # + torch.cuda.synchronize
-                        _fail(f"6a shared {name}: {n_sync} host syncs for "
-                              f"{sum(fetched)} fetched tensors")
-                elif stats["shrink_syncs"] > 1:
-                    _fail(f"6a shared {name}: {stats['shrink_syncs']} shrink "
-                          f"syncs in one run")
-        _log(f"6a shared {name}: " + ", ".join(line)
-             + f"; fused warm {main['warm_ms'][name]:.1f} ms; paths "
-             f"{json.dumps(_delta(wave.path_stats(), paths))}, syncs "
-             f"{json.dumps(_delta(wave.sync_stats(), syncs))}, peak device "
-             f"memory {torch.cuda.max_memory_allocated() / mib:.1f} MiB, "
-             f"{res.num_rows} rows and per-join totals equal to the fused "
-             f"result")
-        del plan, res
-    launches_6a = kernels.launch_counts()
-    _log(f"6a shared kernel launches: {json.dumps(launches_6a)}")
-    if not all(launches_6a[k] > 0 for k in MAIN_PATH_KERNELS):
-        _fail(f"6a shared: a kernel of the path was not launched: "
-              f"{launches_6a}")
-
-    # 6c set-up: the query documents and their query-aware data
+    # 6b set-up: the query documents and their query-aware data
     docs = job_shapes.QUERY_DOCUMENTS
     sqls = [docs[name][0] for name in docs]
     used = sorted({e.table for sql in sqls
@@ -1924,7 +1841,7 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
                                  queries=sqls).generate()
     t1 = time.perf_counter()
     sqlite = oracle.SqliteOracle({n: imdb[n] for n in used})
-    _log(f"6c: {len(docs)} query documents written, query-aware datagen at "
+    _log(f"6b: {len(docs)} query documents written, query-aware datagen at "
          f"scale {args.scale} in {t1 - t0:.1f} s, sqlite over {len(used)} "
          f"tables ({sum(imdb[n].num_rows for n in used)} rows) loaded in "
          f"{time.perf_counter() - t1:.1f} s")
@@ -1932,38 +1849,37 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     on_card = harness_run.JobHarness(plans_path, source)
     on_cpu = harness_run.JobHarness(plans_path, source, device="cpu")
     if on_card.context.device.type != "cuda":
-        _fail("6c: the harness did not take the card by default")
+        _fail("6b: the harness did not take the card by default")
 
-    # 6b: the declined plan goes to the wave executor in auto mode
+    # 6a: the declined plan goes to the stepwise executor in auto mode
     name = job_shapes.VARCHAR_KEY_QUERY
-    shared_calls = []
-    run_shared = wave.execute_shared
+    stepwise_calls = []
+    run_stepwise = engine.execute_device
     lowering = fz.FusedPlan._varchar_dev_csr
 
-    def counting_shared(*a):
-        shared_calls.append(1)
-        return run_shared(*a)
+    def counting_stepwise(*a):
+        stepwise_calls.append(1)
+        return run_stepwise(*a)
 
     fz.FusedPlan._varchar_dev_csr = lambda self, *a: None
-    wave.execute_shared = counting_shared
-    paths = wave.path_stats()
+    engine.execute_device = counting_stepwise
     try:
         parsed, plan = on_card.build_plan(name)
         declined, ms = timed_execute(plan)
     finally:
         fz.FusedPlan._varchar_dev_csr = lowering
-        wave.execute_shared = run_shared
+        engine.execute_device = run_stepwise
     correct, detail = harness_run.verify_result(parsed, plan, declined,
                                                 sqlite)
-    if shared_calls != [1] or not correct or declined.num_rows == 0:
-        _fail(f"6b declined plan: execute_shared calls {shared_calls}, "
+    if stepwise_calls != [1] or not correct or declined.num_rows == 0:
+        _fail(f"6a declined plan: execute_device calls {stepwise_calls}, "
               f"{declined.num_rows} rows, verify {correct} ({detail})")
-    _log(f"6b declined plan {name}: the fused structure declined the "
-         f"VARCHAR key, auto mode served it by execute_shared in {ms:.1f} "
-         f"ms, paths {json.dumps(_delta(wave.path_stats(), paths))}, "
-         f"{declined.num_rows} rows equal to the row oracle and sqlite")
+    _log(f"6a declined plan {name}: the fused structure declined the "
+         f"VARCHAR key, auto mode served it by the stepwise executor in "
+         f"{ms:.1f} ms, {declined.num_rows} rows equal to the row oracle "
+         f"and sqlite")
 
-    # 6c: SQL to result, lazy inputs and eager pages
+    # 6b: SQL to result, lazy inputs and eager pages
     small_limit = 1_000_000
     expected, sql_rows, doc_rows, doc_cold = {}, {}, {}, {}
     for eager in ("off", "on"):
@@ -1978,14 +1894,14 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
                 again, warm_ms = timed_execute(plan)
                 actual = res.to_host().to_rows()
                 if res.num_rows == 0:
-                    _fail(f"6c {name}: empty result, nothing checked")
+                    _fail(f"6b {name}: empty result, nothing checked")
                 if name not in sql_rows:
                     sql_rows[name] = sqlite.query(parsed.executed_sql())
                     n_in = sum(t.num_rows for t in plan.inputs)
                     if n_in < small_limit:
                         t1 = time.perf_counter()
                         expected[name] = oracle.execute_plan_rows(plan)
-                        _log(f"6c {name}: row oracle over {n_in} input rows "
+                        _log(f"6b {name}: row oracle over {n_in} input rows "
                              f"in {time.perf_counter() - t1:.1f} s")
                 checks = ["sqlite"]
                 ok, detail = oracle.rows_equal(actual, sql_rows[name])
@@ -1993,24 +1909,24 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
                     checks.append("row oracle")
                     ok, detail = oracle.rows_equal(actual, expected[name])
                 if not ok:
-                    _fail(f"6c {name} (eager pages {eager}): {detail}")
+                    _fail(f"6b {name} (eager pages {eager}): {detail}")
                 _parsed, cpu_plan = on_cpu.build_plan(name)
                 cpu_res = rt.execute(cpu_plan, on_cpu.context)
                 if not (_same_rows(np, res, cpu_res)
                         and _same_rows(np, again, cpu_res)):
-                    _fail(f"6c {name} (eager pages {eager}): rows differ "
+                    _fail(f"6b {name} (eager pages {eager}): rows differ "
                           f"from the cpu route")
                 if eager == "off":
                     doc_rows[name] = res.num_rows
-                _log(f"6c {name} (eager pages {eager}): cold {ms:.1f} ms, "
+                _log(f"6b {name} (eager pages {eager}): cold {ms:.1f} ms, "
                      f"warm {warm_ms:.1f} ms, {res.num_rows} rows equal to "
                      f"{', '.join(checks)} and the cpu route; inputs "
                      f"{[t.num_rows for t in plan.inputs]}, strategies "
                      f"{sorted(plan._fused_struct_cache[1].strategies().values())}")
         rose = _delta(kernels.launch_counts(), before)
-        _log(f"6c (eager pages {eager}) kernel launches: {json.dumps(rose)}")
+        _log(f"6b (eager pages {eager}) kernel launches: {json.dumps(rose)}")
         if eager == "on" and not rose.get("paged_window_gather"):
-            _fail("6c: eager pages did not reach the paged decode kernel")
+            _fail("6b: eager pages did not reach the paged decode kernel")
 
     # all five documents through verify_result (row oracle and sqlite) at a
     # tenth of the scale, where the row-by-row oracle finishes every query
@@ -2020,47 +1936,16 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     small_sqlite = oracle.SqliteOracle({n: small[n] for n in used})
     small_harness = harness_run.JobHarness(
         plans_path, harness_run.TableSource(host_tables=small))
-    for mode in ("auto", "shared"):
-        t1 = time.perf_counter()
-        with _Env(RJT_EXEC_MODE=mode):
-            for name in docs:
-                res, _ms, correct, detail = small_harness.run_query(
-                    name, verify=True, sqlite_oracle=small_sqlite)
-                if not correct or res.num_rows == 0:
-                    _fail(f"6c {name} at scale {small_scale} ({mode}): "
-                          f"{res.num_rows} rows, {detail}")
-        _log(f"6c at scale {small_scale}, mode {mode}: all {len(docs)} "
-             f"documents verified by verify_result (row oracle and sqlite) "
-             f"in {time.perf_counter() - t1:.1f} s")
-
-    # the shrink's copy: a compacted node shrunk mid-plan frees its bucket
-    name = "q6a"
-    for copy in (True, False):
-        _parsed, plan = on_card.build_plan(name)
-        syncs = wave.sync_stats()
-        wave.SHRINK_COPY = copy
-        try:
-            # a second sync, so that the wave of the cast_info join (a
-            # bucket of cast_info's pad for a few thousand rows) is synced
-            with _Env(RJT_EXEC_MODE="shared", RJT_SHRINK_MAX_SYNCS=2):
-                rt.execute(plan, ctx)  # uploads cached; buckets still unknown
-                del plan._learned_buckets
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-                res, ms = timed_execute(plan)
-        finally:
-            wave.SHRINK_COPY = True
-        ok, detail = oracle.rows_equal(res.to_host().to_rows(),
-                                       sql_rows[name])
-        if not ok:
-            _fail(f"6c {name} on the wave executor: {detail}")
-        _log(f"6c {name} on the wave executor, shrink "
-             f"{'copies' if copy else 'keeps views'}: {ms:.1f} ms, peak "
-             f"device memory {torch.cuda.max_memory_allocated() / mib:.1f} "
-             f"MiB over {base / mib:.1f} MiB held before the run, syncs of "
-             f"the two runs {json.dumps(_delta(wave.sync_stats(), syncs))}, "
-             f"rows equal to sqlite")
+    t1 = time.perf_counter()
+    for name in docs:
+        res, _ms, correct, detail = small_harness.run_query(
+            name, verify=True, sqlite_oracle=small_sqlite)
+        if not correct or res.num_rows == 0:
+            _fail(f"6b {name} at scale {small_scale}: {res.num_rows} rows, "
+                  f"{detail}")
+    _log(f"6b at scale {small_scale}: all {len(docs)} documents verified by "
+         f"verify_result (row oracle and sqlite) in "
+         f"{time.perf_counter() - t1:.1f} s")
     on_card.close()
     on_cpu.close()
     small_harness.close()
@@ -2070,7 +1955,7 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
                  "sql_rows": sql_rows, "expected": expected,
                  "doc_rows": doc_rows, "doc_cold": doc_cold}
 
-    # 6d: each knob against its default, inside whole plans
+    # 6c: each knob against its default, inside whole plans
     knobs = [("default", {}),
              ("RJT_CSR_JOIN=off", {"RJT_CSR_JOIN": "off"}),
              ("RJT_DEV_CSR=off", {"RJT_DEV_CSR": "off"}),
@@ -2088,10 +1973,10 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
                 again, warm_ms = timed_execute(plan)
             if not (_same_rows(np, res, warm[name])
                     and _same_rows(np, again, warm[name])):
-                _fail(f"6d {name} under {label}: rows differ from phase 3")
+                _fail(f"6c {name} under {label}: rows differ from phase 3")
             took = plan._fused_struct_cache[1].strategies()
             routes[(name, label)] = sorted(took.values())
-            _log(f"6d {name} under {label}: strategies "
+            _log(f"6c {name} under {label}: strategies "
                  f"{json.dumps(took)}, cold {cold_ms:.1f} ms, warm "
                  f"{warm_ms:.1f} ms, feedback "
                  f"{'kept' if hasattr(plan, '_learned_buckets') else 'none'}"
@@ -2104,7 +1989,7 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
     }
     for key in moved:
         if routes[key] == routes[(key[0], "default")]:
-            _fail(f"6d {key[0]}: {key[1]} did not change the route "
+            _fail(f"6c {key[0]}: {key[1]} did not change the route "
                   f"{routes[key]}")
     check = engine.engine_stats()
     if any(check[k] for k in engine.ENGINE_STATS):
@@ -2112,10 +1997,10 @@ def run_shared_and_sql(torch, np, rt, kernels, main, args):
 
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    _log(f"wave executor and SQL path kernel launches: "
+    _log(f"declined plan, knobs and SQL path kernel launches: "
          f"{json.dumps(launches)}")
     if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS):
-        _fail(f"a kernel of the wave executor and SQL path was not "
+        _fail(f"a kernel of the declined plan, knobs and SQL path was not "
               f"launched: {launches}")
     return launches, sql_state
 
@@ -2571,7 +2456,7 @@ def run_tools(torch, np, kernels, sql, args):
     if d["backend"] != "cuda" or d["queries"] != len(sql["doc_rows"]):
         _fail(f"8a: backend {d['backend']}, {d['queries']} queries")
     if d["result_rows"] != want_rows:
-        _fail(f"8a: {d['result_rows']} result rows, phase 6c verified "
+        _fail(f"8a: {d['result_rows']} result rows, phase 6b verified "
               f"{want_rows} against sqlite ({json.dumps(sql['doc_rows'])})")
     tallies = [d["degradations"], d.get("degradations_process", {}),
                d.get("secondary", {}).get("degradations", {})]
@@ -2600,7 +2485,7 @@ def run_tools(torch, np, kernels, sql, args):
          f"split {json.dumps(d['stage_split_ms'])}; device ms "
          f"{json.dumps(d['device_ms'])}; secondary "
          f"{json.dumps(d['secondary'])}; {d['result_rows']} rows equal to "
-         f"phase 6c's sqlite-checked rows; degradations zero; kernel "
+         f"phase 6b's sqlite-checked rows; degradations zero; kernel "
          f"launches {json.dumps(bench_launches)}")
 
     # 8b: the fuzz campaign in this process, on the card
@@ -2676,7 +2561,7 @@ def run_tools(torch, np, kernels, sql, args):
     return launches
 
 
-#: 8b's seeds (every one in each of the six modes)
+#: 8b's seeds (every one in each of the five modes)
 FUZZ_SEEDS = 256
 #: 8c's probe rows
 ROOFLINE_SIZE = 1 << 22
@@ -2991,7 +2876,7 @@ def run_cold_start(torch, np, rt, kernels, main, sql, args):
     if any(v for k, v in detail["degradations"].items() if k != "queries"):
         _fail(f"9c: a degradation tally rose: {detail['degradations']}")
     if detail["result_rows"] != sum(sql["doc_rows"].values()):
-        _fail(f"9c: {detail['result_rows']} result rows, phase 6c "
+        _fail(f"9c: {detail['result_rows']} result rows, phase 6b "
               f"{sum(sql['doc_rows'].values())}")
     return total
 
@@ -3108,10 +2993,10 @@ def main() -> None:
     # phase 5: memory and batch, counted
     mb_launches = run_memory_and_batch(torch, np, rt, kernels, main_path)
     phase_done("phase 5 (memory and batch)")
-    # phase 6: the wave executor, the knobs, SQL to result, counted
-    sq_launches, sql_state = run_shared_and_sql(torch, np, rt, kernels,
-                                                main_path, args)
-    phase_done("phase 6 (wave executor, knobs, SQL to result)")
+    # phase 6: the declined plan, the knobs, SQL to result, counted
+    sq_launches, sql_state = run_knobs_and_sql(torch, np, rt, kernels,
+                                               main_path, args)
+    phase_done("phase 6 (declined plan, knobs, SQL to result)")
     # phase 7: the distributed layer, counted
     dist_launches = run_distributed(torch, np, rt, kernels, main_path,
                                     sql_state, args)
@@ -3172,7 +3057,7 @@ def main() -> None:
             "library_ms": rec["library_ms"],
             "pct_of_bound": rec["pct_of_bound"],
             "launches_memory_batch": mb_launches[name],
-            "launches_shared_sql": sq_launches[name],
+            "launches_sql": sq_launches[name],
             "launches_dist": dist_launches[name],
             "launches_bench": tools_launches["bench"][name],
             "launches_fuzz": tools_launches["fuzz"][name],

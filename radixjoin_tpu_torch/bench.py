@@ -540,14 +540,12 @@ def main():
                 f"{str(e)[:200]}); primary result unaffected")
 
     _partial["stage"] = "done"
-    from radixjoin_tpu_torch.plan import executor as _ex
-
     fused_paths: dict = {}
     for plan in plans.values():
         cached = getattr(plan, "_fused_struct_cache", None)
         for strategy in (cached[1].strategies().values() if cached else ()):
             fused_paths[strategy] = fused_paths.get(strategy, 0) + 1
-    log(f"bench: join paths wave={_ex.path_stats()} fused={fused_paths}")
+    log(f"bench: join paths fused={fused_paths}")
     for name, _ in sorted(per_query.items(), key=lambda kv: -kv[1])[:3]:
         st = getattr(plans[name], "_last_exec_stats", None)
         if st:

@@ -34,11 +34,10 @@ ops/radix.py); a ``torch.cuda.OutOfMemoryError`` drops the idle caches and
 retries, and after the third failure spills the same way. Every such
 degradation is tallied (:func:`engine_stats`); no other exception is
 caught. A plan the fused structure declines (a VARCHAR key with no joint
-dictionary window) runs on the wave executor (plan/executor.py
-``execute_shared``), as does every plan under ``RJT_EXEC_MODE=shared``;
-``RJT_EXEC_MODE=stepwise`` runs the stepwise executor
-(:func:`execute_device`), which is also the last resort. ``RJT_EXEC_MODE``
-is ``auto`` (default), ``fused``, ``shared`` or ``stepwise``.
+dictionary window) runs on the stepwise executor (:func:`execute_device`),
+which unifies the two dictionaries of each VARCHAR key itself; so does
+every plan under ``RJT_EXEC_MODE=stepwise``. ``RJT_EXEC_MODE`` is ``auto``
+(default), ``fused`` or ``stepwise``.
 :func:`execute_many` is the batch form: every admitted plan is dispatched
 on its own CUDA stream before any result is consumed.
 """
@@ -509,7 +508,9 @@ def _execute_join(left: DevTable, right: DevTable, join: JoinNode,
 def execute_device(plan: Plan, context: Optional[Context] = None) -> DevTable:
     """Run the plan node by node, returning the root as a dense device
     table. Serves ``RJT_EXEC_MODE=stepwise`` and every plan the fused
-    structure declines; its uploads are not cached."""
+    structure declines (a VARCHAR key with no joint dictionary window: the
+    key's two dictionaries are unified here); its uploads are not
+    cached."""
     if context is None:
         context = build_context()
     device = context.device
@@ -1145,7 +1146,7 @@ def _fused_attempts(plan: Plan, context: Context,
                     structure = cached[1]
                 sp.note("built", built)
             if structure.has_varchar_key:
-                return None  # the caller falls back to the wave executor
+                return None  # the caller falls back to the stepwise executor
             with trace.span("fused.launch"):
                 (out_values_dev, out_valid_dev, totals_dev,
                  marks) = fz.run(structure)
@@ -1527,9 +1528,9 @@ def _hbm_budget(context: Context) -> int:
 
 def _exec_mode() -> str:
     mode = os.environ.get("RJT_EXEC_MODE", "auto")
-    if mode not in ("auto", "fused", "shared", "stepwise"):
-        raise ValueError(f"RJT_EXEC_MODE={mode!r}: expected auto, fused, "
-                         "shared or stepwise")
+    if mode not in ("auto", "fused", "stepwise"):
+        raise ValueError(f"RJT_EXEC_MODE={mode!r}: expected auto, fused or "
+                         "stepwise")
     return mode
 
 
@@ -1540,12 +1541,12 @@ def execute(plan: Plan, context: Optional[Context] = None) -> ColumnarTable:
     Runs the fused whole-plan executor when the working set fits the
     device budget, inside a ledger reservation that evicts idle cached
     uploads to make room; spills to the host-staged multi-pass radix
-    executor when the scan inputs alone exceed the budget. The wave
+    executor when the scan inputs alone exceed the budget. The stepwise
     executor serves the rare plan the fused structure declines (a VARCHAR
-    key with no joint dictionary window) and ``RJT_EXEC_MODE=shared``; the
-    stepwise executor is the last resort. ``torch.cuda.OutOfMemoryError``
-    is the one exception caught: idle caches are dropped and the plan is
-    retried, twice, before it spills; every such step is tallied
+    key with no joint dictionary window) and ``RJT_EXEC_MODE=stepwise``.
+    ``torch.cuda.OutOfMemoryError`` is the one exception caught: idle
+    caches are dropped and the plan is retried, twice, before it spills;
+    every such step is tallied
     (:func:`engine_stats`). Traced as one ``request`` (its attribute
     ``route`` the executor that gave the result)."""
     if context is None:
@@ -1598,21 +1599,14 @@ def _execute(plan: Plan, context: Context) -> ColumnarTable:
 
 
 def _run_on_device(plan: Plan, context: Context, mode: str) -> HostTable:
-    """The device executors in turn: fused, then wave, then stepwise."""
-    from .plan import executor
-
+    """The device executors in turn: fused, then stepwise."""
     host = None
-    if mode in ("auto", "fused"):
+    if mode != "stepwise":
         host = _execute_fused(plan, context)
-    if host is None and mode != "stepwise":
-        # shared mode, or the fused structure declined the plan (a
-        # VARCHAR key it cannot window): the wave executor unifies the
-        # dictionaries itself
-        trace.note_request("route", "wave")
-        host = executor.execute_shared(
-            plan, _detect_unique_joins(plan), context.device)
-        context.last_exec_stats = plan._last_exec_stats
     if host is None:
+        # stepwise mode, or the fused structure declined the plan (a
+        # VARCHAR key it cannot window): the stepwise executor unifies the
+        # dictionaries itself
         trace.note_request("route", "stepwise")
         host = _execute_stepwise(plan, context)
     return host
@@ -1724,7 +1718,7 @@ def execute_many(
     same budget as ``execute``; one that does not fit next to the in-flight
     set waits for a drain round. Plans the fused structure declines, whose
     inputs exceed the budget or that ran out of memory fall back to
-    :func:`execute` (its wave executor, spill and out-of-memory ladder,
+    :func:`execute` (its stepwise executor, spill and out-of-memory ladder,
     which tallies its own retries) on the caller's stream. Results
     are identical to per-plan ``execute`` calls, in input order.
 

@@ -289,7 +289,7 @@ def _q6a_tree() -> dict:
 #: tables, LIKE / NOT LIKE and IN filters, MIN outputs), OR filters inside
 #: one entity, one table under two aliases, a join on a VARCHAR column, and
 #: a JOB 6a-shaped chain whose selective general join sits under two more
-#: joins (its bucket shrinks mid-plan on the wave executor)
+#: joins
 QUERY_DOCUMENTS = {
     "q1a": (_Q1A_SQL, {"Plan": _q1a_tree()}),
     "q_or": (_OR_SQL, {"Plan": _or_tree()}),

@@ -5,7 +5,7 @@ Each seed's plan (:func:`radixjoin_tpu_torch.harness.fuzz.gen_plan`) runs
 in every mode asked for, and every result is held to the row-semantics
 oracle (``harness/oracle.execute_plan_rows`` / ``rows_equal``):
 
-* ``auto``, ``shared``, ``stepwise``: ``execute`` under that
+* ``auto``, ``stepwise``: ``execute`` under that
   ``RJT_EXEC_MODE``, on a fresh context each;
 * ``spill``: ``auto`` under a device budget of 4,096 bytes, so every plan
   takes the host-staged radix spill;
@@ -27,7 +27,7 @@ every seed.
 Usage::
 
     python -m radixjoin_tpu_torch.tools.fuzz_campaign [--seeds 500] \
-        [--start 0] [--modes auto,shared,stepwise,spill,dist,dist_chunked] \
+        [--start 0] [--modes auto,stepwise,spill,dist,dist_chunked] \
         [--platform cuda|cpu]
 
 Runs on the CUDA card unless ``--platform cpu``. Every failure prints one
@@ -45,7 +45,7 @@ import time
 
 import numpy as np
 
-MODES = ("auto", "shared", "stepwise", "spill", "dist", "dist_chunked")
+MODES = ("auto", "stepwise", "spill", "dist", "dist_chunked")
 #: the device budget of the ``spill`` mode, bytes
 SPILL_BUDGET = "4096"
 

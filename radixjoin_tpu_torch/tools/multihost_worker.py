@@ -239,7 +239,7 @@ def table_columns(table):
     return out
 
 
-def _run_plan(plan, mesh, config, label):
+def _execute_plan(plan, mesh, config, label):
     """Cold, then warm on the learned state, each held to the row oracle
     (raises on a difference). Returns the record of both runs."""
     from radixjoin_tpu_torch.harness import oracle
@@ -314,7 +314,7 @@ def main(argv=None) -> int:
         for chunks in [int(c) for c in args.dist_chunks.split(",") if c]:
             plan = build_scenario(scenario, DataType, Plan, ColumnarTable,
                                   HostTable)
-            record["plans"][f"{scenario}/{chunks}"] = _run_plan(
+            record["plans"][f"{scenario}/{chunks}"] = _execute_plan(
                 plan, mesh, DistJoinConfig(exchange_chunks=max(1, chunks)),
                 f"rank {mesh.rank} {scenario} chunks={chunks}")
 

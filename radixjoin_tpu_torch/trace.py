@@ -1,8 +1,8 @@
 """Spans and counters of the port, in one registry.
 
 Counters are always on. Each is a key of a :class:`Counters` group
-(``engine.ENGINE_STATS``, ``plan.executor.PATH_STATS`` and ``SYNC_STATS``,
-each ledger's ``stats``, the kernels' launch counts, the upload, fetch and
+(``engine.ENGINE_STATS``, each ledger's ``stats``, the kernels' launch
+counts, the fused executor's join strategies, the upload, fetch and
 fused-executor tallies), a dict that its readers read as before; its full
 name is ``<group>.<key>``.
 

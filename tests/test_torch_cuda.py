@@ -720,7 +720,7 @@ def test_partitioned_join_on_card_equals_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# the wave executor and the SQL entry point on the card
+# random plans and the SQL entry point on the card
 # ---------------------------------------------------------------------------
 
 
@@ -768,81 +768,24 @@ def _random_plan(rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["s1", "s2", "s3", "f64"])
-def test_shared_mode_on_card_equals_fused_and_cpu(job_plans, shape,
-                                                  monkeypatch):
-    """The wave executor on the card: cold and warm equal to the fused
-    result and to the wave executor on the CPU, per-join totals included;
-    the warm run makes no shrink sync and no host sync beyond its
-    fetches."""
-    import warnings
-
-    from radixjoin_tpu_torch import engine
-    from radixjoin_tpu_torch.plan import executor as wave
-
-    plans, fused_results, ctx = job_plans
-    plan = plans[shape]
-    fused_totals = dict(plan._last_join_totals)
-    plan._fused_struct_cache = None
-    del plan._learned_buckets
-    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
-    monkeypatch.setenv("RJT_SHRINK_MIN_PAD", "2048")
-    kernels.reset_launch_counts()
-    cold = rt.execute(plan, ctx)
-    assert plan._last_exec_stats["shrink_syncs"] <= 1
-    fetched = []
-    fetch = engine._fetch
-    monkeypatch.setattr(engine, "_fetch",
-                        lambda ts: fetched.append(len(ts)) or fetch(ts))
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            warm = rt.execute(plan, ctx)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in seen if "synchroniz" in str(w.message)]
-    print(f"{shape}: {len(syncs)} host syncs for {sum(fetched)} fetched "
-          f"tensors in {len(fetched)} rounds")
-    assert len(syncs) <= sum(fetched)
-    assert plan._last_exec_stats["shrink_syncs"] == 0
-    assert plan._last_exec_stats["rounds"] == len(fetched) == 2
-    launched = kernels.launch_counts()
-    for got in (cold, warm):
-        _assert_same_rows(got, fused_results[shape])
-    assert plan._last_join_totals == fused_totals
-    assert getattr(plan, "_fused_struct_cache", None) is None
-    assert launched["blocked_window_gather_multi"] > 0
-    # F1 is one merge join: its lookups all ride the blocked-window kernel;
-    # the others' unique-key joins probe through unique_probe, and S1's
-    # small build tables' payloads ride window_gather
-    assert (launched["unique_probe"] > 0) == (shape != "f64")
-    assert (launched["window_gather"] > 0) == (shape == "s1")
-    assert (launched["paged_window_gather"] > 0) == (shape == "s1")
-    paths = wave.path_stats()
-    assert sum(paths.values()) > 0
-    # the CPU route runs the same plan object (its own uploads and ledger)
-    on_cpu = rt.execute(plan, rt.build_context("cpu"))
-    _assert_same_rows(on_cpu, warm)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(6))
-def test_shared_mode_on_card_random_plans(cuda_device, seed, monkeypatch):
+def test_random_plans_on_card_equal_the_cpu(cuda_device, seed, monkeypatch):
+    """Plans over INT32, INT64, FP64 or VARCHAR keys on the fused and on
+    the stepwise executor, cold and warm on the card, equal to the fused
+    result on the CPU, per-join totals included on the fused route."""
     rng = np.random.default_rng(7000 + seed)
     plan = _random_plan(rng)
     cpu = rt.build_context("cpu")
-    monkeypatch.setenv("RJT_EXEC_MODE", "fused")
     want = rt.execute(plan, cpu)
     fused_totals = dict(plan._last_join_totals)
-    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
     del plan._learned_buckets
     ctx = rt.build_context()
-    for _run in ("cold", "warm"):
-        got = rt.execute(plan, ctx)
-        _assert_same_rows(got, want)
-        assert plan._last_join_totals == fused_totals
-    _assert_same_rows(rt.execute(plan, cpu), want)
+    for mode in ("fused", "stepwise"):
+        monkeypatch.setenv("RJT_EXEC_MODE", mode)
+        for _run in ("cold", "warm"):
+            _assert_same_rows(rt.execute(plan, ctx), want)
+            if mode == "fused":
+                assert plan._last_join_totals == fused_totals
 
 
 @pytest.mark.cuda
@@ -852,7 +795,7 @@ def test_query_documents_through_the_harness_on_card(cuda_device, eager,
     """SQL text and EXPLAIN document to a verified result on the card:
     every query document through ``JobHarness``, checked by
     ``verify_result`` against the row oracle and sqlite, in ``auto`` and in
-    ``shared`` mode; with eager pages the scans decode on the card."""
+    ``stepwise`` mode; with eager pages the scans decode on the card."""
     from radixjoin_tpu_torch.harness import datagen, oracle
     from radixjoin_tpu_torch.harness import run as harness_run
 
@@ -866,7 +809,7 @@ def test_query_documents_through_the_harness_on_card(cuda_device, eager,
         path, harness_run.TableSource(host_tables=tables))
     assert harness.context.device.type == "cuda"
     kernels.reset_launch_counts()
-    for mode in ("auto", "shared"):
+    for mode in ("auto", "stepwise"):
         monkeypatch.setenv("RJT_EXEC_MODE", mode)
         for name in docs:
             result, _ms, correct, detail = harness.run_query(
@@ -881,12 +824,12 @@ def test_query_documents_through_the_harness_on_card(cuda_device, eager,
 
 
 @pytest.mark.cuda
-def test_declined_plan_on_card_goes_to_the_wave_executor(cuda_device,
-                                                         tmp_path,
-                                                         monkeypatch):
+def test_declined_plan_on_card_goes_to_the_stepwise_executor(cuda_device,
+                                                             tmp_path,
+                                                             monkeypatch):
+    from radixjoin_tpu_torch import engine
     from radixjoin_tpu_torch.harness import datagen, oracle
     from radixjoin_tpu_torch.harness import run as harness_run
-    from radixjoin_tpu_torch.plan import executor as wave
 
     docs = job_shapes.QUERY_DOCUMENTS
     path = job_shapes.write_query_documents(str(tmp_path))
@@ -897,8 +840,8 @@ def test_declined_plan_on_card_goes_to_the_wave_executor(cuda_device,
     monkeypatch.setattr(fused.FusedPlan, "_varchar_dev_csr",
                         lambda self, *a: None)
     calls = []
-    run = wave.execute_shared
-    monkeypatch.setattr(wave, "execute_shared",
+    run = engine.execute_device
+    monkeypatch.setattr(engine, "execute_device",
                         lambda *a: calls.append(1) or run(*a))
     parsed, plan = harness.build_plan(job_shapes.VARCHAR_KEY_QUERY)
     result = rt.execute(plan, harness.context)
@@ -912,13 +855,10 @@ def test_declined_plan_on_card_goes_to_the_wave_executor(cuda_device,
 @pytest.mark.parametrize("knob,value", [
     ("RJT_CSR_JOIN", "off"), ("RJT_DEV_CSR", "off"),
     ("RJT_UNIQUE_JOIN", "sort"), ("RJT_BIG_MERGE", "4096"),
-    ("RJT_CARD_FEEDBACK", "off"), ("RJT_GENERAL_JOIN", "sort3"),
+    ("RJT_CARD_FEEDBACK", "off"),
 ])
-@pytest.mark.parametrize("mode", ["fused", "shared"])
-def test_knobs_on_card_keep_the_rows(job_plans, knob, value, mode,
-                                     monkeypatch):
+def test_knobs_on_card_keep_the_rows(job_plans, knob, value, monkeypatch):
     plans, fused_results, ctx = job_plans
-    monkeypatch.setenv("RJT_EXEC_MODE", mode)
     monkeypatch.setenv(knob, value)
     for shape in ("s1", "s2", "f64"):
         for _run in ("cold", "warm"):
@@ -1091,7 +1031,7 @@ def test_bench_on_card_over_the_query_documents(cuda_device):
 
 @pytest.mark.cuda
 def test_fuzz_campaign_on_card_in_every_mode(cuda_device):
-    """16 seeds in all six modes on the card (the distributed ones on a
+    """16 seeds in all five modes on the card (the distributed ones on a
     one-rank NCCL group the campaign opens and leaves), each held to the
     row oracle; the main path's gather kernels launched."""
     import torch.distributed as dist
@@ -1101,8 +1041,8 @@ def test_fuzz_campaign_on_card_in_every_mode(cuda_device):
     kernels.reset_launch_counts()
     stats = fuzz_campaign.run_campaign(16, 0, fuzz_campaign.MODES)
     assert stats["failures"] == 0
-    assert stats["runs"] == {"auto": 16, "shared": 16, "stepwise": 16,
-                             "spill": 16, "dist": 32, "dist_chunked": 32}
+    assert stats["runs"] == {"auto": 16, "stepwise": 16, "spill": 16,
+                             "dist": 32, "dist_chunked": 32}
     assert not dist.is_initialized()
     counts = kernels.launch_counts()
     assert counts["window_gather"] > 0

@@ -60,7 +60,7 @@ def test_port_generator_gives_the_reference_plan(seed):
     assert got == want
 
 
-@pytest.mark.parametrize("seed", range(10))
+@pytest.mark.parametrize("seed", [*range(10), *range(1000, 1008)])
 def test_fuzz_plan_matches_reference(seed):
     rng = np.random.default_rng(seed)
     converted = check_parity(gen_plan(rng))
@@ -83,12 +83,12 @@ def test_campaign_is_clean_in_every_mode():
     proc = subprocess.run(
         [sys.executable, "-m", "radixjoin_tpu_torch.tools.fuzz_campaign",
          "--platform", "cpu", "--seeds", "8",
-         "--modes", "auto,shared,stepwise,spill,dist,dist_chunked"],
+         "--modes", "auto,stepwise,spill,dist,dist_chunked"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
     assert "FAIL" not in proc.stdout
-    # 8 seeds: one run in each of four modes, cold and warm in two
-    assert "CLEAN (64 checked runs" in proc.stdout
+    # 8 seeds: one run in each of three modes, cold and warm in two
+    assert "CLEAN (56 checked runs" in proc.stdout
 
 
 def test_campaign_reports_a_planted_wrong_result(monkeypatch, capsys):

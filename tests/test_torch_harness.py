@@ -23,7 +23,6 @@ from radixjoin_tpu_torch.harness import datagen as port_datagen
 from radixjoin_tpu_torch.harness import job_shapes
 from radixjoin_tpu_torch.harness import oracle as port_oracle
 from radixjoin_tpu_torch.harness import run as port_run
-from radixjoin_tpu_torch.plan import executor as port_exec
 
 from test_fuzz_plans import gen_plan
 from test_torch_engine import SEMANTICS, assert_same_tables, port_rows
@@ -189,7 +188,7 @@ def test_verify_result_catches_a_wrong_result(harness, sqlite):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", ["auto", "shared", "stepwise"])
+@pytest.mark.parametrize("mode", ["auto", "stepwise"])
 def test_cli_verifies_the_query_documents(mode, documents, capsys,
                                           monkeypatch):
     monkeypatch.setenv("RJT_EXEC_MODE", mode)
@@ -345,7 +344,7 @@ def test_eager_pages_send_the_harness_through_the_paged_decode(
         documents, port_tables, sqlite, monkeypatch):
     """``RJT_EAGER_PAGES=on``: inputs are eager aligned pages without a host
     twin, so INT32 scan columns with a full page decode on the device, on
-    the fused and on the wave executor."""
+    the fused and on the stepwise executor."""
     from radixjoin_tpu_torch.ops import kernels
 
     monkeypatch.setenv("RJT_EAGER_PAGES", "on")
@@ -356,7 +355,7 @@ def test_eager_pages_send_the_harness_through_the_paged_decode(
     h = port_run.JobHarness(documents[0],
                             port_run.TableSource(host_tables=port_tables),
                             device="cpu")
-    for mode in ("fused", "shared"):
+    for mode in ("fused", "stepwise"):
         monkeypatch.setenv("RJT_EXEC_MODE", mode)
         del calls[:]
         _res, _ms, correct, detail = h.run_query("q6a", verify=True,
@@ -365,11 +364,12 @@ def test_eager_pages_send_the_harness_through_the_paged_decode(
         assert calls, mode
 
 
-def test_declined_query_document_is_served_by_the_wave_executor(
+def test_declined_query_document_is_served_by_the_stepwise_executor(
         harness, sqlite, monkeypatch):
     """The VARCHAR-key document: fused as a dev_csr over unified
     dictionary ids; when the fused structure declines it, ``auto`` mode
-    hands it to ``execute_shared``."""
+    hands it to the stepwise executor (``engine.execute_device``)."""
+    from radixjoin_tpu_torch import engine
     from radixjoin_tpu_torch.plan import fused
 
     name = job_shapes.VARCHAR_KEY_QUERY
@@ -380,8 +380,8 @@ def test_declined_query_document_is_served_by_the_wave_executor(
     monkeypatch.setattr(fused.FusedPlan, "_varchar_dev_csr",
                         lambda self, *a: None)
     calls = []
-    run = port_exec.execute_shared
-    monkeypatch.setattr(port_exec, "execute_shared",
+    run = engine.execute_device
+    monkeypatch.setattr(engine, "execute_device",
                         lambda *a: calls.append(1) or run(*a))
     parsed, plan = harness.build_plan(name)
     declined = port.execute(plan, harness.context)

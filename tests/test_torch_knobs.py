@@ -1,8 +1,7 @@
 """The strategy knobs of docs/CONFIG.md in the port against the JAX package
 under the same value: ``RJT_UNIQUE_JOIN``, ``RJT_CSR_JOIN``, ``RJT_DEV_CSR``,
 ``RJT_BIG_MERGE``, ``RJT_CARD_FEEDBACK`` on the fused executor (equal rows,
-per-join totals and join strategies) and on the wave executor (equal rows,
-totals and ``path_stats()`` deltas); tolerance 0. An unknown value raises,
+per-join totals and join strategies); tolerance 0. An unknown value raises,
 and a knob changed between two runs of one plan object changes the route.
 The JAX package runs on the CPU with its Pallas kernels in interpret mode,
 the port on ``build_context("cpu")``.
@@ -24,11 +23,9 @@ from radixjoin_tpu_torch.plan import fused as port_fused
 
 from test_fuzz_plans import gen_plan
 from test_torch_engine import SEMANTICS, check_parity, port_rows
-from test_torch_shared import check_shared
 
 KNOBS = ("RJT_UNIQUE_JOIN", "RJT_CSR_JOIN", "RJT_DEV_CSR", "RJT_BIG_MERGE",
-         "RJT_CARD_FEEDBACK", "RJT_GENERAL_JOIN", "RJT_SHRINK_MIN_PAD",
-         "RJT_SHRINK_MAX_SYNCS")
+         "RJT_CARD_FEEDBACK")
 
 #: every documented value of every knob the port keeps (defaults included)
 VALUES = [
@@ -85,17 +82,6 @@ def test_knob_on_the_fused_executor_matches_reference(knob, value,
             assert hasattr(port_plan, "_learned_buckets") == (value == "on")
 
 
-@pytest.mark.parametrize("knob,value", VALUES)
-def test_knob_on_the_wave_executor_matches_reference(knob, value, imdb_tables,
-                                                     monkeypatch):
-    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
-    monkeypatch.setenv(knob, value)
-    for name, build in _plans(imdb_tables).items():
-        if name in ("three_way", "int64"):
-            continue  # two of a kind are enough for the slower route
-        check_shared(build(), monkeypatch)
-
-
 def _strategies(plan):
     return sorted(plan._fused_struct_cache[1].strategies().values())
 
@@ -125,34 +111,7 @@ def test_knob_changed_between_runs_of_one_plan_changes_the_route(
     assert before in _strategies(plan) and rows_equal(third, first)[0]
 
 
-def test_knob_changed_between_runs_changes_the_wave_executors_path(
-        imdb_tables, monkeypatch):
-    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
-    plan = job_shapes.s1_plan(
-        {n: convert._copy_host_table(t) for n, t in imdb_tables.items()})
-    ctx = port.build_context("cpu")
-
-    def run():
-        seen = port_exec.path_stats()
-        rows = port_rows(port.execute(plan, ctx))
-        return rows, {k for k, v in port_exec.path_stats().items()
-                      if v != seen.get(k, 0)}
-
-    first, paths = run()
-    assert paths == {"unique_scatter", "dev_csr"}
-    monkeypatch.setenv("RJT_DEV_CSR", "off")
-    second, paths = run()
-    assert paths == {"unique_scatter", "general_merge[no_scan]"}
-    assert rows_equal(second, first)[0]
-
-
-#: the wave executor reads every knob, the fused executor the five that
-#: shape its structure and its feedback
-_WAVE_ONLY = ("RJT_GENERAL_JOIN", "RJT_SHRINK_MIN_PAD", "RJT_SHRINK_MAX_SYNCS")
-
-
-@pytest.mark.parametrize("mode,knob", [("shared", k) for k in KNOBS] + [
-    ("fused", k) for k in KNOBS if k not in _WAVE_ONLY])
+@pytest.mark.parametrize("mode,knob", [("fused", k) for k in KNOBS])
 def test_unknown_knob_value_raises(mode, knob, monkeypatch):
     monkeypatch.setenv("RJT_EXEC_MODE", mode)
     monkeypatch.setenv(knob, "bogus")
@@ -165,7 +124,6 @@ def test_knob_defaults_and_state():
     assert port_exec.unique_join_mode() == "auto"
     assert port_exec.csr_join_mode() == "auto"
     assert port_exec.dev_csr_mode() == "auto"
-    assert port_exec.general_join_mode() == "merge"
     assert port_exec.card_feedback_on()
     assert port_fused.big_merge_pad() == port_fused.BIG_MERGE_PAD == 1 << 23
     assert port_exec.strategy_knobs() == ("auto", "auto", "auto", 1 << 23)

@@ -24,7 +24,7 @@ from radixjoin_tpu_torch.harness import job_shapes
 from radixjoin_tpu_torch.harness.datagen import SyntheticIMDB
 
 from test_fuzz_plans import gen_plan
-from test_torch_engine import port_rows, ref_rows
+from test_torch_engine import SEMANTICS, port_rows, ref_rows
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = range(5000, 5006)
@@ -114,6 +114,27 @@ def test_batch_in_stepwise_mode_is_the_serial_loop(batch, monkeypatch):
     _assert_batch(port.execute_many(port_plans, port.build_context("cpu")),
                   want)
     assert all(p._fused_struct_cache is None for p in port_plans)
+
+
+def _check_pair_in_one_batch(ref_plan):
+    """The plan and a fresh copy of it in one ``execute_many`` call: each
+    result's rows equal to the JAX package's ``execute`` of the plan."""
+    want = ref_rows(ref.execute(ref_plan, ref.build_context()))
+    pair = [convert.from_reference(ref_plan) for _ in range(2)]
+    _assert_batch(port.execute_many(pair, port.build_context("cpu")),
+                  [want, want])
+    stats = port_engine.engine_stats()
+    assert all(stats[k] == 0 for k in port_engine.ENGINE_STATS)
+
+
+@pytest.mark.parametrize("case", sorted(SEMANTICS))
+def test_batch_semantics_case_matches_reference(case):
+    _check_pair_in_one_batch(SEMANTICS[case]())
+
+
+@pytest.mark.parametrize("seed", range(1000, 1008))
+def test_batch_fuzz_plan_matches_reference(seed):
+    _check_pair_in_one_batch(gen_plan(np.random.default_rng(seed)))
 
 
 def test_empty_batch():
@@ -277,15 +298,14 @@ def _package_sources():
                     yield os.path.relpath(path, REPO), fh.read()
 
 
-def test_only_the_shared_mode_is_not_implemented():
+def test_nothing_is_left_unimplemented_and_every_mode_is_read():
     """Nothing of the public API is left unported: no module of the package
-    raises ``NotImplementedError`` (``RJT_EXEC_MODE=shared`` was the last),
-    and every mode runs."""
+    raises ``NotImplementedError``, and every mode is accepted."""
     hits = [(path, n) for path, source in _package_sources()
             for n, line in enumerate(source.splitlines(), 1)
             if "NotImplementedError" in line]
     assert hits == []
-    for mode in ("auto", "fused", "shared", "stepwise"):
+    for mode in ("auto", "fused", "stepwise"):
         os.environ["RJT_EXEC_MODE"] = mode
         try:
             assert port_engine._exec_mode() == mode

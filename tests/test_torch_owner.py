@@ -363,7 +363,7 @@ def _site_emits(site, frame_locals):
     return np.asarray(jnp.diff(jnp.append(off, total32)) > 0)
 
 
-def _run_plan(name, tables):
+def _run_shape(name, tables):
     plan = getattr(job_shapes, f"{name}_plan")(
         tables, lazy=name != "s1", plan_cls=Plan, table_cls=ColumnarTable)
     ctx = build_context("cpu")
@@ -372,7 +372,7 @@ def _run_plan(name, tables):
 
 
 def _run_compaction(_tables):
-    # the wave executor's compaction of a probe-shaped node: live rows of
+    # the fused executor's compaction of a probe-shaped node: live rows of
     # an int32 and an int64 column to the front of a smaller bucket
     rng = np.random.default_rng(5)
     for n, frac in ((4096, 0.2), (3000, 0.0), (777, 1.0)):
@@ -394,12 +394,12 @@ def _run_compaction(_tables):
 #: scenario -> (environment, what runs on the CPU (a plan twice, the
 #: second time on its feedback), the sites it must reach)
 _SCENARIOS = {
-    "s1": ({}, lambda t: _run_plan("s1", t), {"join_csr_impl"}),
-    "s2": ({}, lambda t: _run_plan("s2", t), {"join_csr_impl"}),
-    "merge": ({"RJT_BIG_MERGE": "256"}, lambda t: _run_plan("s2", t),
+    "s1": ({}, lambda t: _run_shape("s1", t), {"join_csr_impl"}),
+    "s2": ({}, lambda t: _run_shape("s2", t), {"join_csr_impl"}),
+    "merge": ({"RJT_BIG_MERGE": "256"}, lambda t: _run_shape("s2", t),
               {"_merge_owner_recovery"}),
     "stepwise": ({"RJT_EXEC_MODE": "stepwise"},
-                 lambda t: _run_plan("s2", t), {"join_expand_impl"}),
+                 lambda t: _run_shape("s2", t), {"join_expand_impl"}),
     "compaction": ({}, _run_compaction, {"_compact_probe_shaped"}),
 }
 

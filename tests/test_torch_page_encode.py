@@ -267,7 +267,7 @@ def test_a_result_fed_back_takes_the_device_decode(tables, monkeypatch):
     _assert_aligned_result(again, plan)
 
 
-@pytest.mark.parametrize("mode", ["shared", "stepwise", "spill"])
+@pytest.mark.parametrize("mode", ["stepwise", "spill"])
 def test_other_routes_encode_on_the_host_and_keep_the_rows(tables, mode,
                                                            monkeypatch):
     plan, ctx = _plan(tables, "s1"), port.build_context("cpu")

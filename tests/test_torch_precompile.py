@@ -154,7 +154,7 @@ def test_declined_plan_precompiles_to_false(sources, expected, ledger,
     ctx = port.build_context("cpu")
     assert port_engine.precompile_fused(plan, ctx) is False
     assert getattr(plan, "_fused_struct_cache", None) is None
-    # execute serves it by the wave executor, as without the precompile
+    # execute serves it by the stepwise executor, as without the precompile
     _assert_rows(port.execute(plan, ctx), expected[name], name)
 
 

@@ -11,12 +11,16 @@ import pytest
 
 import radixjoin_tpu as ref
 from radixjoin_tpu import engine as ref_engine
+from radixjoin_tpu.harness.datagen import SyntheticIMDB as RefIMDB
 from radixjoin_tpu.harness.oracle import rows_equal
 from radixjoin_tpu.plan import fused as ref_fused
+from radixjoin_tpu.plan.ir import Plan as RefPlan
+from radixjoin_tpu.storage.columnar import ColumnarTable as RefTable
 
 import radixjoin_tpu_torch as port
 from radixjoin_tpu_torch import convert
 from radixjoin_tpu_torch import engine as port_engine
+from radixjoin_tpu_torch.harness import job_shapes
 from radixjoin_tpu_torch.plan import fused as port_fused
 
 from test_fuzz_plans import gen_plan
@@ -53,65 +57,99 @@ def test_stepwise_semantics_case_matches_reference(case, monkeypatch):
     assert getattr(port_plan, "_fused_struct_cache", None) is None
 
 
-@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("seed", [*range(1000, 1008), *range(8)])
 def test_stepwise_fuzz_plan_matches_reference(seed, monkeypatch):
     monkeypatch.setenv("RJT_EXEC_MODE", "stepwise")
-    want, got, _plan = run_both(gen_plan(np.random.default_rng(1000 + seed)))
+    want, got, _plan = run_both(gen_plan(np.random.default_rng(seed)))
     assert_same_result(want, got)
+
+
+@pytest.fixture(scope="module")
+def imdb_tables():
+    names = sorted(set(job_shapes.S1_TABLES + job_shapes.S2_TABLES))
+    return RefIMDB(scale=0.0004, seed=0).generate(names)
+
+
+@pytest.mark.parametrize("shape,lazy", [("s1", False), ("s2", True)])
+def test_stepwise_job_shape_matches_reference(imdb_tables, shape, lazy,
+                                              monkeypatch):
+    """The JOB shapes over synthetic IMDB (S1 on eager pages, which the
+    stepwise scans decode on the device route, S2 on lazy ones)."""
+    monkeypatch.setenv("RJT_EXEC_MODE", "stepwise")
+    build = getattr(job_shapes, f"{shape}_plan")
+    want, got, port_plan = run_both(build(
+        imdb_tables, lazy=lazy, plan_cls=RefPlan, table_cls=RefTable))
+    assert_same_result(want, got)
+    assert got.num_rows > 0
+    assert getattr(port_plan, "_fused_struct_cache", None) is None
+
+
+def _check_declined(case, monkeypatch):
+    monkeypatch.setattr(ref_fused.FusedPlan, "_varchar_dev_csr",
+                        lambda self, *a: None)
+    monkeypatch.setattr(port_fused.FusedPlan, "_varchar_dev_csr",
+                        lambda self, *a: None)
+    stepwise_calls = []
+    run_stepwise = port_engine.execute_device
+    monkeypatch.setattr(
+        port_engine, "execute_device",
+        lambda plan, ctx=None: stepwise_calls.append(1) or run_stepwise(
+            plan, ctx))
+    ref_plan = SEMANTICS[case]()
+    port_plan = convert.from_reference(ref_plan)
+    got = port.execute(port_plan, port.build_context("cpu"))
+    # the JAX package under its default mode (its wave executor)
+    monkeypatch.delenv("RJT_EXEC_MODE", raising=False)
+    want = ref.execute(ref_plan, ref.build_context())
+    assert_same_result(want, got)
+    assert stepwise_calls == [1]
+    assert port_plan._fused_struct_cache[1].has_varchar_key
+    return want, port_plan, stepwise_calls
 
 
 @pytest.mark.parametrize("case", ["varchar_join_keys",
                                   "varchar_join_keys_fuse"])
 def test_varchar_key_without_joint_window_falls_back(case, monkeypatch):
     """A VARCHAR key whose dictionaries have no joint window (here: the
-    lowering is made to decline) is declined by the fused structure and
-    served, in ``auto`` mode, by the wave executor of each package; the
-    stepwise executor is not reached."""
-    from radixjoin_tpu_torch.plan import executor as port_exec
-
+    lowering is made to decline) is declined by the fused structure. In
+    ``auto`` mode the port serves it by the stepwise executor, through
+    ``execute`` and ``execute_many`` alike; the JAX package serves it by its
+    wave executor. The rows are equal."""
     monkeypatch.delenv("RJT_EXEC_MODE", raising=False)
-    monkeypatch.setattr(ref_fused.FusedPlan, "_varchar_dev_csr",
-                        lambda self, *a: None)
-    monkeypatch.setattr(port_fused.FusedPlan, "_varchar_dev_csr",
-                        lambda self, *a: None)
-    shared_calls, stepwise_calls = [], []
-    run_shared = port_exec.execute_shared
-    run_stepwise = port_engine.execute_device
-    monkeypatch.setattr(
-        port_exec, "execute_shared",
-        lambda *a: shared_calls.append(1) or run_shared(*a))
-    monkeypatch.setattr(
-        port_engine, "execute_device",
-        lambda plan, ctx=None: stepwise_calls.append(1) or run_stepwise(
-            plan, ctx))
-    before = port_exec.path_stats().get("general_merge[non_int]", 0)
-    want, got, port_plan = run_both(SEMANTICS[case]())
-    assert_same_result(want, got)
-    assert shared_calls == [1] and stepwise_calls == []
-    assert port_plan._fused_struct_cache[1].has_varchar_key
-    assert port_exec.path_stats()["general_merge[non_int]"] == before + 1
+    want, port_plan, stepwise_calls = _check_declined(case, monkeypatch)
     # the batch API takes the same fallback
     (again,) = port.execute_many([port_plan], port.build_context("cpu"))
     assert_same_result(want, again)
-    assert shared_calls == [1, 1] and stepwise_calls == []
+    assert stepwise_calls == [1, 1]
 
 
-def test_exec_mode_shared_is_not_ported_and_unknown_modes_raise(monkeypatch):
-    """``shared`` runs (it was the last mode left to port) and equals the
-    reference under the same mode; an unknown mode still raises."""
-    ref_plan = SEMANTICS["simple_join"]()
-    ctx = port.build_context("cpu")
-    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
-    want, got, plan = run_both(ref_plan)
-    assert_same_result(want, got)
-    assert getattr(plan, "_fused_struct_cache", None) is None
-    (again,) = port.execute_many([plan], ctx)
+@pytest.mark.parametrize("case", ["varchar_join_keys",
+                                  "varchar_join_keys_fuse"])
+def test_declined_plan_in_fused_mode_takes_the_stepwise_walk(case,
+                                                             monkeypatch):
+    """``RJT_EXEC_MODE=fused`` names the same route as ``auto``: a plan the
+    fused structure declines goes to the stepwise executor, through
+    ``execute`` and through ``execute_many``."""
+    monkeypatch.setenv("RJT_EXEC_MODE", "fused")
+    want, port_plan, stepwise_calls = _check_declined(case, monkeypatch)
+    monkeypatch.setenv("RJT_EXEC_MODE", "fused")
+    (again,) = port.execute_many([port_plan], port.build_context("cpu"))
     assert_same_result(want, again)
-    monkeypatch.setenv("RJT_EXEC_MODE", "warp")
-    with pytest.raises(ValueError, match="RJT_EXEC_MODE"):
-        port.execute(plan, ctx)
-    with pytest.raises(ValueError, match="RJT_EXEC_MODE"):
-        port.execute_many([plan], ctx)
+    assert stepwise_calls == [1, 1]
+
+
+def test_exec_mode_shared_and_unknown_modes_raise(monkeypatch):
+    """The port's modes are ``auto``, ``fused`` and ``stepwise``: ``shared``
+    (the JAX package's wave executor) raises like any unknown mode, from
+    ``execute`` and from ``execute_many``."""
+    plan = convert.from_reference(SEMANTICS["simple_join"]())
+    ctx = port.build_context("cpu")
+    for mode in ("shared", "warp"):
+        monkeypatch.setenv("RJT_EXEC_MODE", mode)
+        with pytest.raises(ValueError, match="RJT_EXEC_MODE"):
+            port.execute(plan, ctx)
+        with pytest.raises(ValueError, match="RJT_EXEC_MODE"):
+            port.execute_many([plan], ctx)
     monkeypatch.setenv("RJT_EXEC_MODE", "fused")
     assert port.execute(plan, ctx).num_rows == 3
 
@@ -139,13 +177,18 @@ def test_stepwise_device_tables_roundtrip():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("seed", range(8))
 def test_spill_fuzz_plan_matches_reference(seed, monkeypatch):
-    monkeypatch.setenv("RJT_HBM_BUDGET_BYTES", "4096")
+    ref_plan = gen_plan(np.random.default_rng(3000 + seed))
+    # 4 KiB, or less where the plan's inputs fit in that: the inputs alone
+    # exceed the budget, so every plan takes the spill
+    scan_bytes = port_engine._estimate_scan_bytes(
+        convert.from_reference(ref_plan))
+    monkeypatch.setenv("RJT_HBM_BUDGET_BYTES",
+                       str(min(4096, scan_bytes - 1)))
     ref_engine.reset_engine_stats()
     port_engine.reset_engine_stats()
-    want, got, port_plan = run_both(
-        gen_plan(np.random.default_rng(3000 + seed)))
+    want, got, port_plan = run_both(ref_plan)
     assert_same_result(want, got)
     ref_stats, port_stats = ref_engine.engine_stats(), port_engine.engine_stats()
     assert port_stats == ref_stats
@@ -157,11 +200,7 @@ def test_spill_fuzz_plan_matches_reference(seed, monkeypatch):
     port_engine.reset_engine_stats()
 
 
-@pytest.mark.parametrize("case", ["fp64_keys_zero_and_nan",
-                                  "varchar_join_keys", "int64_keys",
-                                  "three_way_join_tree",
-                                  "duplicate_heavy_fanout",
-                                  "type_mismatch_join_is_empty"])
+@pytest.mark.parametrize("case", sorted(SEMANTICS))
 def test_spill_semantics_case_matches_reference(case, monkeypatch):
     monkeypatch.setenv("RJT_HBM_BUDGET_BYTES", "1")
     port_engine.reset_engine_stats()

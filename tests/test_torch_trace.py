@@ -22,8 +22,8 @@ from radixjoin_tpu_torch import engine, trace
 from radixjoin_tpu_torch.dtypes import DataType
 from radixjoin_tpu_torch.harness import job_shapes
 from radixjoin_tpu_torch.harness.datagen import SyntheticIMDB
+from radixjoin_tpu_torch.ops import join as join_ops
 from radixjoin_tpu_torch.ops import kernels
-from radixjoin_tpu_torch.plan import executor as wave
 from radixjoin_tpu_torch.plan import fused
 
 from joinbench import kernel_bytes
@@ -105,7 +105,6 @@ def _assert_nested(log):
 ROUTES = {
     # route: (environment, the span the route's top level leaves)
     "fused": ({}, "fused.attempt"),
-    "wave": ({"RJT_EXEC_MODE": "shared"}, "wave.dispatch"),
     "stepwise": ({"RJT_EXEC_MODE": "stepwise"}, "stepwise"),
     "spill": ({"RJT_HBM_BUDGET_BYTES": "4096"}, "spill"),
 }
@@ -383,7 +382,7 @@ def test_request_counters_sum_to_process_counters(tables, monkeypatch):
         for plan in plans:
             port.execute(plan, ctx)
         port.execute_many(plans, ctx)
-        monkeypatch.setenv("RJT_EXEC_MODE", "shared")
+        monkeypatch.setenv("RJT_EXEC_MODE", "stepwise")
         port.execute(_plan(tables, "s3"), ctx)
 
     _result, log, _wall = _traced(work)
@@ -394,8 +393,11 @@ def test_request_counters_sum_to_process_counters(tables, monkeypatch):
     assert summed == log.counters
     for name in ("fetch.rounds", "fetch.bytes", "upload.memo_misses",
                  "upload.memo_hits", "ledger.charged_bytes",
-                 "sync.root_fetches", "fused.struct_builds"):
+                 "fused.struct_builds"):
         assert log.counters.get(name, 0) > 0, name
+    for plan in plans:
+        for strategy in plan._fused_struct_cache[1].strategies().values():
+            assert log.counters.get(f"join.{strategy}", 0) > 0, strategy
 
 
 def test_tracing_off_leaves_no_span(tables):
@@ -405,28 +407,27 @@ def test_tracing_off_leaves_no_span(tables):
     assert trace.begin_request(plan) is None
     trace.start()
     trace.stop()
-    before = dict(wave.path_stats())
+    joins, rounds = fused.JOIN_STATS.snapshot(), engine.FETCH_STATS["rounds"]
     port.execute(plan, ctx)
     port.execute_many([plan], ctx)
     trace.start()
     log = trace.stop()
     assert log.spans == [] and log.requests == [] and log.counters == {}
     # counters stay on
-    assert wave.path_stats() == before
-    assert engine.FETCH_STATS["rounds"] > 0
+    assert fused.JOIN_STATS.snapshot() != joins
+    assert engine.FETCH_STATS["rounds"] > rounds
 
 
 def test_views_read_the_registry(tables, monkeypatch):
-    """``path_stats()``, ``sync_stats()``, ``engine_stats()``, the
-    ledger's ``stats`` and ``launch_counts()`` keep their keys, and each
-    is a group of the registry: their changes are the log's counters."""
+    """``engine_stats()``, the fetch tallies, the ledger's ``stats`` and
+    ``launch_counts()`` keep their keys, and each of them and the fused
+    executor's ``join`` counters is a group of the registry: their changes
+    are the log's counters."""
     ctx = port.build_context("cpu")
     ledger = engine.device_ledger("cpu")
     assert sorted(ledger.stats) == ["charged_bytes", "evicted_bytes",
                                     "evictions", "waits"]
-    assert sorted(wave.sync_stats()) == sorted(
-        ("shrink_syncs", "totals_fetches", "root_fetches", "shrink_slices",
-         "shrink_compactions", "redispatches"))
+    assert sorted(engine.FETCH_STATS) == ["bytes", "rounds"]
     assert sorted(engine.engine_stats()) == sorted(
         ("infra_fallbacks", "oom_retries", "oom_host_spills",
          "admission_host_spills", "queries"))
@@ -434,22 +435,28 @@ def test_views_read_the_registry(tables, monkeypatch):
         fn.__name__ for fn in kernels._WRAPPERS]
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
-    monkeypatch.setenv("RJT_EXEC_MODE", "shared")
-    views = {"path": wave.path_stats, "sync": wave.sync_stats,
+    views = {"join": fused.JOIN_STATS.snapshot,
+             "join.unique_probe": join_ops.UNIQUE_PROBE_STATS.snapshot,
+             "fetch": engine.FETCH_STATS.snapshot,
              "ledger": lambda: dict(ledger.stats),
              "engine": lambda: {k: v for k, v in engine.engine_stats().items()
                                 if k != "queries"}}
     before = {g: view() for g, view in views.items()}
     _result, log, _wall = _traced(
         lambda: port.execute(_plan(tables, "s2"), ctx))
+    def group_of(name):
+        return max((g for g in views if name.startswith(g + ".")), key=len,
+                   default=None)
+
     for group, view in views.items():
         after = view()
         delta = {k: after[k] - before[group].get(k, 0) for k in after
                  if after[k] != before[group].get(k, 0)}
         assert delta == {name[len(group) + 1:]: n
                          for name, n in log.counters.items()
-                         if name.startswith(group + ".")}, group
-    assert any(name.startswith("path.") for name in log.counters)
+                         if group_of(name) == group}, group
+    assert any(name.startswith("join.") for name in log.counters)
+    assert any(name.startswith("fetch.") for name in log.counters)
 
 
 # ---------------------------------------------------------------------------
