@@ -88,7 +88,9 @@ Phases (any failure exits non-zero; the last line of standard output is
    joins are unfiltered), so SSB's Q2.3 at SF 0.01 runs twice on the
    card: the warm run must compact a unique-key node inside
    ``unique_probe`` (``join.unique_probe.compacted`` rises, the kernel
-   launches) and give the CPU route's rows.
+   launches) and give the CPU route's rows. Then one of S2's root columns
+   of pages at scale 1.0 (339.2 MB) is fetched three times the pageable
+   way and three times into the warm pinned fetch pool, in GB/s.
 4. Device-time path: with the counters set to 0 just before, every case
    of ``harness/devtime.py`` at ``--devtime-size`` rows (default 2^22),
    printed with its ms and share of the HBM figure, then the kernel cases
@@ -1457,6 +1459,7 @@ def run_main_path(torch, np, rt, kernels, args):
                   f"{warm_launches[name]['encode_pages_aligned']} times for "
                   f"{fixed} fixed-width root columns")
     check_ssb_compacting(torch, rt, kernels, ctx)
+    time_root_fetch(torch, ctx.device)
     for name, _build, _lazy in shapes:
         profile_warm(torch, rt, plans[name], ctx, name)
     return {
@@ -1470,6 +1473,43 @@ def run_main_path(torch, np, rt, kernels, args):
         "cold_rounds": {name: rounds[(name, "cold")] for name in plans},
         "root_rows": root_rows,
     }
+
+
+#: S2's root at IMDB's scale 1.0: 79.5 M INT32 rows, 1,920 a page
+S2_ROOT_PAGES = 41_406
+
+
+def time_root_fetch(torch, dev) -> None:
+    """One of S2's root columns of pages at scale 1.0 fetched three times
+    the pageable way (``.cpu()`` into a fresh array, the fetch below the
+    pool's size) and three times through ``engine._fetch`` into the pinned
+    pool (after one fetch that makes its block), in GB/s."""
+    from radixjoin_tpu_torch import engine
+
+    pages = torch.randint(0, 256, (S2_ROOT_PAGES, 8192), dtype=torch.uint8,
+                          device=dev)
+    want = pages[-1].cpu().numpy()
+    rates = {"pageable": [], "pooled": []}
+    engine._fetch([pages])
+    allocs = engine.FETCH_STATS["pool_allocs"]
+    for _ in range(3):
+        for label in rates:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (pages.cpu().numpy() if label == "pageable"
+                   else engine._fetch([pages])[0])
+            rates[label].append(pages.nbytes / (time.perf_counter() - t0) / 1e9)
+            if not (out[-1] == want).all():
+                _fail(f"root fetch {label}: the last page differs")
+            del out
+    made = engine.FETCH_STATS["pool_allocs"] - allocs
+    _log(f"root fetch, S2's root column at scale 1.0 ({S2_ROOT_PAGES} pages, "
+         f"{pages.nbytes / 1e6:.1f} MB): pageable "
+         + " / ".join(f"{r:.2f}" for r in rates["pageable"]) + " GB/s, pooled "
+         + " / ".join(f"{r:.2f}" for r in rates["pooled"])
+         + f" GB/s; blocks made while timed {made}")
+    if made:
+        _fail(f"root fetch: the warm pool made {made} blocks")
 
 
 def check_ssb_compacting(torch, rt, kernels, ctx) -> None:

@@ -59,7 +59,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import hardware, trace
+from . import hardware, pinned_pool, trace
 from .dtypes import DataType
 from .ops import join as join_ops
 from .ops import kernels, keynorm
@@ -904,8 +904,14 @@ def _tally(kind: str, plan) -> None:
 
 
 #: the blocking fetches of every executor (``rounds``) and the bytes they
-#: bring to the host
-FETCH_STATS = trace.Counters("fetch", ("rounds", "bytes"))
+#: bring to the host; of those, the arrays fetched into the pinned pool
+#: (``pinned_arrays``, ``pinned_bytes``), the pool's new blocks
+#: (``pool_allocs``; 0 in a warm steady state) and its capacity now
+#: (``pool_bytes``), and the arrays its bound sent the pageable way
+#: (``pageable_fallbacks``)
+FETCH_STATS = trace.Counters("fetch", (
+    "rounds", "bytes", "pinned_arrays", "pinned_bytes", "pool_allocs",
+    "pageable_fallbacks", "pool_bytes"))
 #: the fused executor: structures built (``struct_builds``; 0 in a warm
 #: steady state) and attempts re-run after an overflow (``overflow_reruns``)
 FUSED_STATS = trace.Counters("fused", ("struct_builds", "overflow_reruns"))
@@ -927,7 +933,9 @@ def _fetched(kind: str, arrays, start_ns: int, end_ns: int):
     if not trace.ON:
         return None
     trace.record("fetch", start_ns, end_ns,
-                 {"kind": kind, "bytes": sum(a.nbytes for a in arrays)})
+                 {"kind": kind, "bytes": sum(a.nbytes for a in arrays),
+                  "pinned": sum(a.nbytes for a in arrays
+                                if pinned_pool.pooled(a))})
     return trace.open_at("decode", end_ns) if kind == "root" else None
 
 
@@ -959,10 +967,45 @@ def _detect_unique_joins(plan: Plan) -> frozenset:
     return frozenset(unique)
 
 
+_FETCH_POOL: Optional[pinned_pool.PinnedPool] = None
+_FETCH_POOL_LOCK = threading.Lock()
+
+
+def _fetch_pool() -> pinned_pool.PinnedPool:
+    """The process's pinned fetch pool, held to ``pinned_pool.bound_bytes()``
+    (made at first use)."""
+    global _FETCH_POOL
+    with _FETCH_POOL_LOCK:
+        if _FETCH_POOL is None:
+            _FETCH_POOL = pinned_pool.PinnedPool(pinned_pool.bound_bytes(),
+                                                 FETCH_STATS)
+        return _FETCH_POOL
+
+
+def _pool_copies(tensors, event) -> list:
+    """Start the copy of each of ``tensors`` that ``pinned_pool.eligible``
+    takes (a CUDA tensor of at least ``pinned_pool.MIN_BYTES``) into a
+    block of the fetch pool, non-blocking on the current stream, back to
+    back. Returns the host arrays they land in, valid once ``event``
+    (recorded by the caller after its copies) has passed, and None in
+    place of the other tensors and of those the pool's bound turns away."""
+    return [_fetch_pool().copy(t, event) if pinned_pool.eligible(t) else None
+            for t in tensors]
+
+
 def _fetch(tensors) -> List[np.ndarray]:
     """Blocking fetch of a generator's request (every executor's fetches
-    go through here, and are counted)."""
-    out = [t.cpu().numpy() for t in tensors]
+    go through here, and are counted). The large tensors land in the
+    pinned pool (:func:`_pool_copies`), all their copies started before one
+    wait on an event; the others take ``.cpu()``."""
+    event = (torch.cuda.Event()
+             if any(pinned_pool.eligible(t) for t in tensors) else None)
+    out = _pool_copies(tensors, event)
+    if event is not None:
+        event.record()
+    out = [t.cpu().numpy() if a is None else a for t, a in zip(tensors, out)]
+    if event is not None:
+        event.synchronize()
     _count_fetch(out)
     return out
 
@@ -1671,31 +1714,33 @@ def _encode_result(host: HostTable) -> ColumnarTable:
 
 class _PendingFetch:
     """A generator's request on its way to the host. On a CUDA stream each
-    tensor is copied with ``non_blocking=True`` into pinned host memory on
-    that stream and an event marks the end of the copies; :meth:`wait`
-    blocks on the event only. The device tensors are kept until then."""
+    tensor is copied with ``non_blocking=True`` on that stream into pinned
+    host memory, a large one into a block of the fetch pool
+    (:func:`_pool_copies`) and the others into fresh pinned tensors, and an
+    event marks the end of the copies; :meth:`wait` blocks on the event
+    only. The device tensors are kept until then."""
 
     def __init__(self, tensors, stream):
         self._event = None
         if stream is None:
-            self._host = [t.cpu() for t in tensors]
+            self._host = [t.cpu().numpy() for t in tensors]
             return
         self._src = list(tensors)
-        self._host = [
-            torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in tensors
-        ]
+        self._event = torch.cuda.Event()
         with torch.cuda.stream(stream):
-            for h, t in zip(self._host, self._src):
-                h.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
+            self._host = _pool_copies(self._src, self._event)
+            for i, t in enumerate(self._src):
+                if self._host[i] is None:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    self._host[i] = h.numpy()
             self._event.record(stream)
 
     def wait(self) -> List[np.ndarray]:
         if self._event is not None:
             self._event.synchronize()
             self._src = None
-        out = [h.numpy() for h in self._host]
+        out = self._host
         _count_fetch(out)
         return out
 

@@ -427,7 +427,9 @@ def test_views_read_the_registry(tables, monkeypatch):
     ledger = engine.device_ledger("cpu")
     assert sorted(ledger.stats) == ["charged_bytes", "evicted_bytes",
                                     "evictions", "waits"]
-    assert sorted(engine.FETCH_STATS) == ["bytes", "rounds"]
+    assert sorted(engine.FETCH_STATS) == [
+        "bytes", "pageable_fallbacks", "pinned_arrays", "pinned_bytes",
+        "pool_allocs", "pool_bytes", "rounds"]
     assert sorted(engine.engine_stats()) == sorted(
         ("infra_fallbacks", "oom_retries", "oom_host_spills",
          "admission_host_spills", "queries"))
