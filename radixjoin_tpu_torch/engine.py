@@ -1303,7 +1303,9 @@ def _node_stats(plan: Plan, structure, marks, totals,
     (``join.probe_rows.<strategy>``, ``join.out_rows.<strategy>``), and
     left in ``stats`` (when given) as ``node_shapes``, node id ->
     ``{strategy, probe_rows, build_rows, key_bytes, out_rows,
-    out_col_bytes}`` (live rows, not padded ones; bytes of one value),
+    out_col_bytes}`` (live rows, not padded ones; bytes of one value;
+    a ``unique_sort`` or ``merge`` node also its ``sort_reason`` and
+    ``window_log2``),
     and on the card ``node_device_ms``, node id -> milliseconds between
     the node's two events: its stream time, the launch gaps inside it
     included. That time is also the ``device_ms`` of its ``fused.node``
@@ -1328,6 +1330,9 @@ def _node_stats(plan: Plan, structure, marks, totals,
                  "build_rows": rows(build), "key_bytes": mark.key_bytes,
                  "out_rows": live[mark.node],
                  "out_col_bytes": list(mark.out_col_bytes)}
+        if spec.sort_reason is not None:
+            shape["sort_reason"] = spec.sort_reason
+            shape["window_log2"] = spec.window_log2
         shapes[mark.node] = shape
         fz.JOIN_STATS.add(f"probe_rows.{spec.strategy}", shape["probe_rows"])
         fz.JOIN_STATS.add(f"out_rows.{spec.strategy}", shape["out_rows"])

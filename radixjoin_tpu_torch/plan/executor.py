@@ -138,10 +138,9 @@ def _unique_scatter_window(plan: Plan, j, battr: int, bpad: int, ppad: int):
         return 0, join_ops.MIN_BUCKET  # no valid build rows -> no matches
     base, hi = rng
     r_pad = join_ops.bucket_size(hi - base + 1)
-    if r_pad > (1 << 26):
-        return None  # cap the slot table at 256 MiB
-    if mode != "scatter" and r_pad > max(1 << 20, 32 * (bpad + ppad)):
-        return None  # window too sparse vs the sort cost
+    verdict = _window_verdict(r_pad, bpad, ppad)
+    if verdict == "window_cap" or (verdict == "sparse" and mode != "scatter"):
+        return None
     return base, r_pad
 
 
@@ -238,12 +237,80 @@ def _dev_csr_window(plan: Plan, j, battr: int, pattr: int, bpad: int,
             return swapped, 0, join_ops.MIN_BUCKET
         base, hi = rng
         r_pad = join_ops.bucket_size(hi - base + 1)
-        if r_pad > (1 << 26):
-            continue  # cap window arrays at 256 MiB
-        if mode != "force" and r_pad > max(1 << 20, 32 * (bpad + ppad)):
-            continue  # window too sparse vs the merge-sort cost
+        verdict = _window_verdict(r_pad, bpad, ppad)
+        if verdict == "window_cap" or (verdict == "sparse"
+                                       and mode != "force"):
+            continue
         return swapped, base, r_pad
     return None
+
+
+# ---------------------------------------------------------------------------
+# Why a join sorts
+# ---------------------------------------------------------------------------
+
+#: the largest key window of the dense strategies' device tables (the
+#: unique-scatter slot table, the device CSR): 256 MiB of int32 slots
+DENSE_WINDOW_CAP = 1 << 26
+
+
+def _window_verdict(r_pad: int, bpad: int, ppad: int) -> Optional[str]:
+    """Why a dense strategy would not take a key window of ``r_pad``
+    slots at these pads: ``window_cap`` (over :data:`DENSE_WINDOW_CAP`),
+    ``sparse`` (the window too sparse to beat a sort of both sides), or
+    None (it would). The unique-scatter and device-CSR windows apply it;
+    ``RJT_UNIQUE_JOIN=scatter`` and ``RJT_DEV_CSR=force`` waive
+    ``sparse``."""
+    if r_pad > DENSE_WINDOW_CAP:
+        return "window_cap"
+    if r_pad > max(1 << 20, 32 * (bpad + ppad)):
+        return "sparse"
+    return None
+
+
+def _window_pad(hcol) -> int:
+    rng = hcol.valid_range()
+    if rng is None:
+        return join_ops.MIN_BUCKET
+    return join_ops.bucket_size(rng[1] - rng[0] + 1)
+
+
+def unique_sort_reason(plan: Plan, j, battr: int, bpad: int, ppad: int):
+    """``(reason, window_log2)`` of a unique-key join that took
+    ``unique_sort``: why the slot table over the build key's window did not
+    take it (``window_cap``, ``sparse``, or ``knob`` where only
+    ``RJT_UNIQUE_JOIN=sort`` kept it off), and the log2 of that window."""
+    build_child = plan.nodes[j.left if j.build_left else j.right]
+    col_idx, _dt = build_child.output_attrs[battr]
+    hcol = plan.inputs[build_child.data.base_table_id].to_host().columns[col_idx]
+    r_pad = _window_pad(hcol)
+    return (_window_verdict(r_pad, bpad, ppad) or "knob",
+            r_pad.bit_length() - 1)
+
+
+def merge_reason(plan: Plan, j, battr: int, pattr: int, bpad: int,
+                 ppad: int, key_dtype, big: bool):
+    """``(reason, window_log2)`` of a join that took ``merge``: where the
+    combined pad sent it there (``big``), ``big_merge``, or ``knob`` where
+    only a lowered ``RJT_BIG_MERGE`` did (window_log2 None: no window was
+    asked); an FP64 key, ``key_type`` (None); otherwise the verdict on the
+    narrower of the two sides' key windows, the device CSR's candidates
+    (``window_cap``, ``sparse``, or ``knob`` where only ``RJT_CSR_JOIN`` /
+    ``RJT_DEV_CSR`` set to ``off`` kept a dense strategy off), and the log2
+    of that window."""
+    from . import fused
+
+    if big:
+        by_default = bpad + ppad >= fused.BIG_MERGE_PAD
+        return ("big_merge" if by_default else "knob"), None
+    if key_dtype not in (DataType.INT32, DataType.INT64):
+        return "key_type", None
+    bchild = j.left if j.build_left else j.right
+    pchild = j.right if j.build_left else j.left
+    r_pad = min(_window_pad(_origin_host_column(plan, child, attr))
+                for child, attr in ((bchild, battr), (pchild, pattr)))
+    return (_window_verdict(r_pad, bpad, ppad) or "knob",
+            r_pad.bit_length() - 1)
 
 
 # ---------------------------------------------------------------------------

@@ -88,6 +88,13 @@ class _JoinSpec:
     #: truncates — the engine detects ``total > compact_pad`` and retries
     #: without it.
     compact_pad: int = 0
+    #: ``unique_sort`` and ``merge`` only: why no dense strategy took the
+    #: join (``window_cap``, ``sparse``, ``big_merge``, ``key_type`` or
+    #: ``knob``; ``plan.executor.unique_sort_reason`` / ``merge_reason``),
+    #: and the log2 of the key window a dense strategy would have needed
+    #: (None where no window was asked)
+    sort_reason: Optional[str] = None
+    window_log2: Optional[int] = None
 
 
 class FusedPlan:
@@ -170,6 +177,7 @@ class FusedPlan:
             pchild = j.right if j.build_left else j.left
 
             strategy, r_pad, aux_id = "merge", 0, -1
+            sort_reason = window_log2 = None
             if key_dtype is None:
                 strategy = "empty"
             elif key_dtype is DataType.VARCHAR:
@@ -201,11 +209,15 @@ class FusedPlan:
                     self.aux_args.append((base,))
                 else:
                     strategy = "unique_sort"
+                    sort_reason, window_log2 = _ex.unique_sort_reason(
+                        plan, j, battr, pads[bchild], pads[pchild])
             elif _big_merge(pads[bchild], pads[pchild]):
                 # huge pads: the CSR paths' window and payload lookups run
                 # at probe/output size, the merge join is one sort with
                 # sort-carried payloads; the strategy stays "merge"
-                pass
+                sort_reason, window_log2 = _ex.merge_reason(
+                    plan, j, battr, pattr, pads[bchild], pads[pchild],
+                    key_dtype, big=True)
             else:
                 csr = _ex._general_csr_index(
                     plan, j, battr, pattr, pads[bchild], pads[pchild],
@@ -228,6 +240,10 @@ class FusedPlan:
                         self.aux_args.append((base,))
                 # otherwise (FP64 key, or no economic integer key window)
                 # the strategy stays "merge"
+                if strategy == "merge":
+                    sort_reason, window_log2 = _ex.merge_reason(
+                        plan, j, battr, pattr, pads[bchild], pads[pchild],
+                        key_dtype, big=False)
 
             compact_pad = 0
             if strategy in ("unique_scatter", "unique_sort"):
@@ -251,7 +267,7 @@ class FusedPlan:
             self.join_specs[idx] = _JoinSpec(
                 j.build_left, j.left, j.right, j.left_attr, j.right_attr,
                 key_dtype, out_pad, out_cols, strategy, r_pad, aux_id,
-                compact_pad,
+                compact_pad, sort_reason, window_log2,
             )
             self.col_sources[idx] = tuple(
                 self.col_sources[j.left][ci]
@@ -358,8 +374,10 @@ def run(structure: FusedPlan):
     root's columns in its pad and the exact per-join totals (int64, in
     ``structure.join_order``), all on the structure's device, and this
     run's :class:`NodeMark` of each join, in that order. Each join is
-    counted by strategy (:data:`JOIN_STATS`), traced as a ``fused.node``
-    span (its node id and strategy) and, on the card, bracketed by two
+    counted by strategy (:data:`JOIN_STATS`; a sort-based one also as
+    ``sort_reason.<reason>``), traced as a ``fused.node`` span (its node
+    id and strategy; a sort-based one's ``sort_reason`` and
+    ``window_log2``) and, on the card, bracketed by two
     timing events on its stream, for the caller to read once the totals
     have reached the host."""
     plan = structure.plan
@@ -377,11 +395,16 @@ def run(structure: FusedPlan):
             continue
         spec = structure.join_specs[idx]
         JOIN_STATS.add(spec.strategy)
+        if spec.sort_reason is not None:
+            JOIN_STATS.add(f"sort_reason.{spec.sort_reason}")
         pchild, pattr = ((spec.right, spec.right_attr) if spec.build_left
                          else (spec.left, spec.left_attr))
         with trace.span("fused.node") as sp:
             sp.note("node", idx)
             sp.note("strategy", spec.strategy)
+            if spec.sort_reason is not None:
+                sp.note("sort_reason", spec.sort_reason)
+                sp.note("window_log2", spec.window_log2)
             start = _timing_event(dev) if timed else None
             tables[idx], total = _run_join(structure, spec, tables)
             end = _timing_event(dev) if timed else None

@@ -3,8 +3,10 @@
 Walks the EXPLAIN tree the same way the reference harness does
 (tests/read_sql.cpp:861-1141):
 
-* ``Aggregate``/``Gather``/``Sort`` wrappers are transparent (the caller
-  aggregates and orders the joined rows);
+* ``Aggregate``/``Gather``/``Sort``/``Limit``/``Subquery Scan`` wrappers
+  are transparent (the caller aggregates, orders and limits the joined
+  rows; a subquery in FROM is read as its own tables, as the front end
+  flattens it);
 * a ``Hash Join`` must have exactly one ``Hash`` child — that side is the
   build side (``build_left``), the child under ``Hash`` is unwrapped;
 * ``Seq Scan``/``Index Only Scan`` resolve via ``Alias`` (or a unique
@@ -32,7 +34,7 @@ from ..plan.ir import Plan
 from ..storage.columnar import ColumnarTable
 from .frontend import ParsedSQL, TableEntity
 
-_TRANSPARENT = {"Aggregate", "Gather", "Sort"}
+_TRANSPARENT = {"Aggregate", "Gather", "Sort", "Limit", "Subquery Scan"}
 _JOINS = {"Nested Loop", "Hash Join", "Merge Join"}
 _SCANS = {"Seq Scan", "Index Only Scan"}
 

@@ -1,4 +1,5 @@
-"""SQL frontend: lower a parsed JOB or SSB query into filters + join graph.
+"""SQL frontend: lower a parsed JOB, SSB or TPC-H query into filters + join
+graph.
 
 Reimplements the semantics of the reference's ``ParsedSQL``
 (tests/read_sql.cpp:680-859) on our own AST:
@@ -13,13 +14,19 @@ Reimplements the semantics of the reference's ``ParsedSQL``
 * every pair of columns in a DSU equivalence class becomes an edge of the
   join graph, at most one edge per entity pair (read_sql.cpp:818-857);
 * ``executed_sql`` rewrites the select list to the raw joined columns
-  (stripping MIN aggregates) for oracle execution (read_sql.cpp:694-729).
+  (stripping MIN aggregates) for oracle execution (read_sql.cpp:694-729);
+* a comparison of two columns of one table occurrence is that table's
+  filter (:class:`~.predicate.ColumnOperand`);
+* a FROM list that is one subquery with no aggregation is read as the
+  subquery: the outer select list, GROUP BY and ORDER BY name the
+  subquery's items, which stand in for those names.
 
 The root's output (``output_attrs``) is, in the order the SQL text reads
 them, one column a plain or ``MIN`` select item, as in the reference, and
 each column that an expression item (``SUM(a * b)``), GROUP BY or ORDER BY
-reads and no earlier item did: the caller aggregates and orders the joined
-rows. Tables and columns resolve against ``catalog`` (IMDB's by default).
+reads and no earlier item did (a CASE's conditions before its values): the
+caller aggregates, orders and limits the joined rows. Tables and columns
+resolve against ``catalog`` (IMDB's by default).
 """
 
 from __future__ import annotations
@@ -29,18 +36,30 @@ from typing import Dict, List, Optional, Tuple
 
 from .catalog import IMDB, Catalog
 from .parser import (
+    Aggregate,
+    Arith,
     Between,
     BoolOp,
+    Case,
     ColumnRef,
     Compare,
+    DerivedTable,
+    Extract,
     InList,
     IsNull,
     Like,
     NotOp,
+    OrderItem,
+    SelectItem,
     SelectStatement,
+    columns_of,
     parse_sql,
 )
-from .predicate import Comparison, LogicalOperation, Op, Statement, and_filters
+from .predicate import (Comparison, ColumnOperand, LogicalOperation, Op,
+                        Statement, and_filters)
+
+_OPS = {"=": Op.EQ, "!=": Op.NEQ, "<": Op.LT, ">": Op.GT, "<=": Op.LEQ,
+        ">=": Op.GEQ}
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -74,13 +93,97 @@ class DSU:
             self.parent[rb] = ra
 
 
+def _alias_ref(ref, aliases) -> bool:
+    """Whether ``ref`` is an unqualified name of one of ``aliases``."""
+    return (isinstance(ref, ColumnRef) and ref.table is None
+            and ref.column in aliases)
+
+
+def _substitute(node, fn):
+    """``node`` with every column reference ``ref`` replaced by
+    ``fn(ref)``."""
+    if isinstance(node, ColumnRef):
+        return fn(node)
+    if isinstance(node, (Arith, BoolOp)):
+        return dataclasses.replace(node, left=_substitute(node.left, fn),
+                                   right=_substitute(node.right, fn))
+    if isinstance(node, Aggregate):
+        return dataclasses.replace(node, arg=_substitute(node.arg, fn))
+    if isinstance(node, Case):
+        return Case([(_substitute(c, fn), _substitute(v, fn))
+                     for c, v in node.whens], _substitute(node.default, fn))
+    if isinstance(node, NotOp):
+        return NotOp(_substitute(node.child, fn))
+    if isinstance(node, (Extract, Compare, Like, Between, InList, IsNull)):
+        field = "column" if isinstance(node, Extract) else "left"
+        column = _substitute(getattr(node, field), fn)
+        if not isinstance(column, ColumnRef):
+            raise ValueError(f"a subquery's expression where a column "
+                             f"must stand: {column!r}")
+        node = dataclasses.replace(node, **{field: column})
+        if isinstance(node, Compare):
+            node = dataclasses.replace(node,
+                                       right=_substitute(node.right, fn))
+        return node
+    return node  # a constant
+
+
+def flatten(stmt: SelectStatement) -> SelectStatement:
+    """A statement whose FROM list is one subquery with no aggregation, as
+    the subquery itself: its tables and WHERE, and the outer select list,
+    GROUP BY and ORDER BY with each name of a subquery item (bare or
+    qualified by the subquery's alias) replaced by that item's expression.
+    Any other statement is returned as it is."""
+    derived = [t for t in stmt.tables if isinstance(t, DerivedTable)]
+    if not derived:
+        return stmt
+    if len(stmt.tables) != 1 or stmt.where is not None:
+        raise ValueError("a FROM-clause subquery must be the only table, "
+                         "with no outer WHERE")
+    (sub,) = derived
+    inner = flatten(sub.stmt)
+    if inner.group_by or any(i.aggregate for i in inner.select_list):
+        raise ValueError("a FROM-clause subquery with aggregation is not "
+                         "supported")
+    names = {}
+    for item in inner.select_list:
+        name = item.alias or (item.column.column if item.expr is None
+                              else None)
+        if name is not None:
+            names[name] = item.column if item.expr is None else item.expr
+
+    def fn(ref: ColumnRef):
+        if ref.table in (None, sub.alias) and ref.column in names:
+            return names[ref.column]
+        if ref.table == sub.alias:
+            raise ValueError(f"no column {ref.column} in {sub.alias}")
+        return ref
+
+    items = []
+    for item in stmt.select_list:
+        value = _substitute(item.expr if item.expr is not None
+                            else item.column, fn)
+        if isinstance(value, ColumnRef) and item.expr is None:
+            items.append(SelectItem(value, item.aggregate, item.alias))
+        else:
+            items.append(SelectItem(None, item.aggregate, item.alias,
+                                    expr=value))
+    aliases = {i.alias for i in stmt.select_list if i.alias is not None}
+    order_by = [o if _alias_ref(o.ref, aliases)
+                else OrderItem(_substitute(o.ref, fn), o.descending)
+                for o in stmt.order_by]
+    return SelectStatement(items, inner.tables, inner.where,
+                           [_substitute(g, fn) for g in stmt.group_by],
+                           order_by, stmt.limit)
+
+
 class ParsedSQL:
     def __init__(self, sql: str, name: str = "<query>",
                  catalog: Optional[Catalog] = None):
         self.name = name
         self.sql = sql
         self.catalog = IMDB if catalog is None else catalog
-        stmt = parse_sql(sql)
+        stmt = flatten(parse_sql(sql))
         self.table_counts: Dict[str, int] = {}
         self.alias_map: Dict[str, TableEntity] = {}
         self.entity_to_alias: Dict[TableEntity, str] = {}
@@ -150,16 +253,17 @@ class ParsedSQL:
                 self.output_attrs.append((ent, column))
             else:
                 self._add_outputs(item.columns())
-        self._add_outputs(stmt.group_by)
+        for group in stmt.group_by:
+            self._add_outputs(columns_of(group))
         # an ORDER BY name that is a select item's alias reads its columns
         aliases = {item.alias: item for item in stmt.select_list
                    if item.alias is not None}
         for order in stmt.order_by:
             ref = order.ref
-            if ref.table is None and ref.column in aliases:
+            if _alias_ref(ref, aliases):
                 self._add_outputs(aliases[ref.column].columns())
             else:
-                self._add_outputs([ref])
+                self._add_outputs(columns_of(ref))
 
         dsu = DSU(column_count)
         if stmt.where is not None:
@@ -232,16 +336,19 @@ class ParsedSQL:
         if isinstance(expr, Compare):
             column, ent = self.resolve(expr.left)
             if isinstance(expr.right, ColumnRef):
+                rcolumn, rent = self.resolve(expr.right)
+                if rent == ent:
+                    # two columns of one row: the table's filter
+                    other = ColumnOperand(
+                        self.catalog.column_index(ent.table, rcolumn))
+                    return self._comparison(ent, column, _OPS[expr.op],
+                                            other), ent
                 if expr.op != "=":
                     raise ValueError("non-equi joins are not supported")
-                rcolumn, rent = self.resolve(expr.right)
                 dsu.unite(self._global_col(ent, column), self._global_col(rent, rcolumn))
                 return None, None
-            op = {
-                "=": Op.EQ, "!=": Op.NEQ, "<": Op.LT, ">": Op.GT,
-                "<=": Op.LEQ, ">=": Op.GEQ,
-            }[expr.op]
-            return self._comparison(ent, column, op, expr.right), ent
+            return self._comparison(ent, column, _OPS[expr.op],
+                                    expr.right), ent
         if isinstance(expr, Like):
             column, ent = self.resolve(expr.left)
             op = Op.NOT_LIKE if expr.negated else Op.LIKE

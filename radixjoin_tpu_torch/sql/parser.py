@@ -1,4 +1,4 @@
-"""Minimal SQL parser for the JOB and SSB query shapes.
+"""Minimal SQL parser for the JOB, SSB and TPC-H join query shapes.
 
 The reference harness uses the hsql parser and supports exactly:
 ``SELECT <MIN(col)|col>, ... FROM t [AS a], ... WHERE <condition>;`` with
@@ -8,13 +8,23 @@ equi-join predicates (reference tests/read_sql.cpp:329-655, :731-858).
 The Star Schema Benchmark's queries add select items ``SUM(<expr>)``,
 ``<expr>`` columns joined by ``*`` and ``-``, and the clauses
 ``GROUP BY col, ...`` and ``ORDER BY <col|alias> [ASC|DESC], ...`` after
-WHERE. This module parses that subset from scratch into a small expression
-AST; :mod:`.frontend` lowers the AST into per-table filters + a join graph.
+WHERE. TPC-H's join queries add, in select items, numeric constants, ``+``
+and ``/``, parentheses, aggregates inside arithmetic, ``CASE WHEN <cond>
+THEN <expr> ... [ELSE <expr>] END`` and ``EXTRACT(YEAR FROM col)``; in
+conditions, ``date 'YYYY-MM-DD'`` literals with ``+`` / ``- interval 'n'
+day|month|year`` folded on the calendar (a date reads as its days since
+1970-01-01, the INT32 a DATE column holds), and a comparison of two
+columns; a FROM-clause subquery ``(SELECT ...) [AS] alias``; and ``LIMIT
+n`` at the end. This module parses that subset from scratch into a small
+expression AST; :mod:`.frontend` lowers the AST into per-table filters + a
+join graph.
 """
 
 from __future__ import annotations
 
+import calendar
 import dataclasses
+import datetime
 import re
 from typing import List, Optional, Tuple, Union
 
@@ -28,7 +38,7 @@ _TOKEN_RE = re.compile(
   | (?P<number>-?\d+(?:\.\d+)?)
   | (?P<ident>[A-Za-z_][A-Za-z_0-9]*(?:\.[A-Za-z_][A-Za-z_0-9]*)?)
   | (?P<op><>|!=|<=|>=|=|<|>)
-  | (?P<punct>[(),;*-])
+  | (?P<punct>[(),;*/+-])
     """,
     re.VERBOSE,
 )
@@ -125,12 +135,65 @@ Expr = Union[Compare, Like, Between, InList, IsNull, BoolOp, NotOp]
 
 @dataclasses.dataclass
 class Arith:
-    """``left op right`` between columns of a select item (op ``*`` or
-    ``-``)."""
+    """``left op right`` of a select item's expression (op ``+``, ``-``,
+    ``*`` or ``/``); an operand is a column, a number or another
+    expression node."""
 
     op: str
-    left: Union[ColumnRef, "Arith"]
-    right: Union[ColumnRef, "Arith"]
+    left: "Value"
+    right: "Value"
+
+
+@dataclasses.dataclass
+class Aggregate:
+    """``func(arg)`` inside an expression (``SUM`` or ``MIN``)."""
+
+    func: str
+    arg: "Value"
+
+
+@dataclasses.dataclass
+class Case:
+    """``CASE WHEN cond THEN value ... ELSE default END``."""
+
+    whens: List[Tuple[Expr, "Value"]]
+    default: "Value" = None
+
+
+@dataclasses.dataclass
+class Extract:
+    """``EXTRACT(field FROM column)``."""
+
+    field: str
+    column: ColumnRef
+
+
+Value = Union[ColumnRef, Arith, Aggregate, Case, Extract, int, float, None]
+
+
+def columns_of(node) -> List[ColumnRef]:
+    """The columns an expression or condition reads, left to right (a
+    CASE's conditions before the values they choose)."""
+    if isinstance(node, ColumnRef):
+        return [node]
+    if isinstance(node, (Arith, BoolOp)):
+        return columns_of(node.left) + columns_of(node.right)
+    if isinstance(node, Aggregate):
+        return columns_of(node.arg)
+    if isinstance(node, Extract):
+        return [node.column]
+    if isinstance(node, Case):
+        out = []
+        for cond, value in node.whens:
+            out += columns_of(cond) + columns_of(value)
+        return out + columns_of(node.default)
+    if isinstance(node, NotOp):
+        return columns_of(node.child)
+    if isinstance(node, Compare):
+        return [node.left] + columns_of(node.right)
+    if isinstance(node, (Like, Between, InList, IsNull)):
+        return [node.left]
+    return []  # a constant
 
 
 @dataclasses.dataclass
@@ -140,38 +203,66 @@ class SelectItem:
     alias: Optional[str] = None
     #: the item's expression where it is not one plain column (``SUM``'s
     #: argument, which may be one column)
-    expr: Optional[Union[ColumnRef, Arith]] = dataclasses.field(
-        default=None, repr=False)
+    expr: Optional[Value] = dataclasses.field(default=None, repr=False)
 
     def columns(self) -> List[ColumnRef]:
         """The columns the item reads, left to right."""
         if self.expr is None:
             return [self.column]
-        out, todo = [], [self.expr]
-        while todo:
-            node = todo.pop()
-            if isinstance(node, Arith):
-                todo += [node.right, node.left]
-            else:
-                out.append(node)
-        return out
+        return columns_of(self.expr)
 
 
 @dataclasses.dataclass
 class OrderItem:
-    ref: ColumnRef  # a column, or (unqualified) a select item's alias
+    #: a column, (unqualified) a select item's alias, or an expression
+    ref: Union[ColumnRef, Value]
     descending: bool = False
+
+
+@dataclasses.dataclass
+class DerivedTable:
+    """A FROM-clause subquery ``(SELECT ...) [AS] alias``."""
+
+    stmt: "SelectStatement"
+    alias: str
 
 
 @dataclasses.dataclass
 class SelectStatement:
     select_list: List[SelectItem]
-    tables: List[Tuple[str, Optional[str]]]  # (table_name, alias)
+    #: (table_name, alias) of each base table, or a DerivedTable
+    tables: List[Union[Tuple[str, Optional[str]], DerivedTable]]
     where: Optional[Expr]
-    group_by: List[ColumnRef] = dataclasses.field(default_factory=list,
-                                                  repr=False)
+    group_by: List[Value] = dataclasses.field(default_factory=list,
+                                              repr=False)
     order_by: List[OrderItem] = dataclasses.field(default_factory=list,
                                                   repr=False)
+    limit: Optional[int] = dataclasses.field(default=None, repr=False)
+
+
+_EPOCH = datetime.date(1970, 1, 1)
+
+
+def date_days(text: str) -> int:
+    """Days since 1970-01-01 of a ``YYYY-MM-DD`` date."""
+    return (datetime.date.fromisoformat(text) - _EPOCH).days
+
+
+def add_interval(days: int, count: int, unit: str) -> int:
+    """``days`` (since 1970-01-01) plus ``count`` days, months or years on
+    the calendar; a day past the end of its month becomes the month's last
+    day, as PostgreSQL reads ``date + interval``."""
+    unit = unit.lower().rstrip("s")
+    day = _EPOCH + datetime.timedelta(days)
+    if unit == "day":
+        return days + count
+    if unit not in ("month", "year"):
+        raise SyntaxError(f"interval unit {unit!r}: day, month or year")
+    months = day.year * 12 + day.month - 1 + (count if unit == "month"
+                                              else 12 * count)
+    year, month = divmod(months, 12)
+    last = calendar.monthrange(year, month + 1)[1]
+    return date_days(f"{year:04d}-{month + 1:02d}-{min(day.day, last):02d}")
 
 
 # -- recursive-descent parser ---------------------------------------------------
@@ -182,8 +273,9 @@ class _Parser:
         self.tokens = tokens
         self.i = 0
 
-    def peek(self) -> Optional[Token]:
-        return self.tokens[self.i] if self.i < len(self.tokens) else None
+    def peek(self, ahead: int = 0) -> Optional[Token]:
+        i = self.i + ahead
+        return self.tokens[i] if i < len(self.tokens) else None
 
     def next(self) -> Token:
         tok = self.peek()
@@ -206,9 +298,28 @@ class _Parser:
             raise SyntaxError(f"expected {kind} {value or ''}, got {got}")
         return tok
 
+    def at_word(self, word: str, ahead: int = 0) -> bool:
+        """Whether the token ``ahead`` is the identifier ``word`` (any
+        case). The words of CASE, EXTRACT, DATE, INTERVAL and LIMIT are no
+        keywords, so a table or column may still bear the name (SSB's
+        ``date``)."""
+        tok = self.peek(ahead)
+        return (tok is not None and tok.kind == "ident"
+                and tok.value.lower() == word)
+
+    def accept_word(self, word: str) -> bool:
+        if self.at_word(word):
+            self.i += 1
+            return True
+        return False
+
+    def expect_word(self, word: str) -> None:
+        if not self.accept_word(word):
+            raise SyntaxError(f"expected {word.upper()}, got {self.peek()}")
+
     # statement -----------------------------------------------------------
 
-    def parse_select(self) -> SelectStatement:
+    def parse_select(self, nested: bool = False) -> SelectStatement:
         self.expect("keyword", "select")
         items = [self.parse_select_item()]
         while self.accept("punct", ","):
@@ -220,22 +331,27 @@ class _Parser:
         where = None
         if self.accept("keyword", "where"):
             where = self.parse_or()
-        group_by: List[ColumnRef] = []
+        group_by: List[Value] = []
         if self.accept("keyword", "group"):
             self.expect("keyword", "by")
-            group_by.append(self.parse_column_ref())
+            group_by.append(self.parse_value())
             while self.accept("punct", ","):
-                group_by.append(self.parse_column_ref())
+                group_by.append(self.parse_value())
         order_by: List[OrderItem] = []
         if self.accept("keyword", "order"):
             self.expect("keyword", "by")
             order_by.append(self.parse_order_item())
             while self.accept("punct", ","):
                 order_by.append(self.parse_order_item())
-        self.accept("punct", ";")
-        if self.peek() is not None:
-            raise SyntaxError(f"trailing tokens: {self.peek()}")
-        return SelectStatement(items, tables, where, group_by, order_by)
+        limit = None
+        if self.accept_word("limit"):
+            limit = int(self.expect("number").value)
+        if not nested:
+            self.accept("punct", ";")
+            if self.peek() is not None:
+                raise SyntaxError(f"trailing tokens: {self.peek()}")
+        return SelectStatement(items, tables, where, group_by, order_by,
+                               limit)
 
     def parse_alias(self) -> Optional[str]:
         if self.accept("keyword", "as"):
@@ -243,49 +359,95 @@ class _Parser:
         return None
 
     def parse_select_item(self) -> SelectItem:
-        if self.accept("keyword", "min"):
-            self.expect("punct", "(")
-            col = self.parse_column_ref()
-            self.expect("punct", ")")
-            return SelectItem(col, aggregate="MIN", alias=self.parse_alias())
-        if self.accept("keyword", "sum"):
-            self.expect("punct", "(")
-            expr = self.parse_arith()
-            self.expect("punct", ")")
-            return SelectItem(None, aggregate="SUM", alias=self.parse_alias(),
-                              expr=expr)
-        expr = self.parse_arith()
-        if isinstance(expr, Arith):
-            return SelectItem(None, alias=self.parse_alias(), expr=expr)
-        return SelectItem(expr, alias=self.parse_alias())
+        expr = self.parse_value()
+        alias = self.parse_alias()
+        if isinstance(expr, Aggregate):
+            if expr.func == "MIN" and isinstance(expr.arg, ColumnRef):
+                return SelectItem(expr.arg, aggregate="MIN", alias=alias)
+            return SelectItem(None, aggregate=expr.func, alias=alias,
+                              expr=expr.arg)
+        if isinstance(expr, ColumnRef):
+            return SelectItem(expr, alias=alias)
+        return SelectItem(None, alias=alias, expr=expr)
 
-    def parse_arith(self) -> Union[ColumnRef, Arith]:
-        """Columns joined by ``-`` and ``*`` (``*`` binds tighter), left
-        to right."""
-        left = self.parse_product()
-        while self.accept("punct", "-"):
-            left = Arith("-", left, self.parse_product())
-        return left
+    def parse_value(self) -> Value:
+        """Terms joined by ``+`` and ``-``, left to right."""
+        left = self.parse_term()
+        while True:
+            tok = self.accept("punct", "+") or self.accept("punct", "-")
+            if tok is None:
+                return left
+            left = Arith(tok.value, left, self.parse_term())
 
-    def parse_product(self) -> Union[ColumnRef, Arith]:
-        left = self.parse_column_ref()
-        while self.accept("punct", "*"):
-            left = Arith("*", left, self.parse_column_ref())
-        return left
+    def parse_term(self) -> Value:
+        """Factors joined by ``*`` and ``/`` (binding tighter than ``+``
+        and ``-``), left to right."""
+        left = self.parse_factor()
+        while True:
+            tok = self.accept("punct", "*") or self.accept("punct", "/")
+            if tok is None:
+                return left
+            left = Arith(tok.value, left, self.parse_factor())
+
+    def parse_factor(self) -> Value:
+        tok = self.peek()
+        if tok is None:
+            raise SyntaxError("unexpected end of SQL")
+        if self.accept("punct", "("):
+            inner = self.parse_value()
+            self.expect("punct", ")")
+            return inner
+        if tok.kind == "number":
+            return self.parse_literal()
+        for func in ("min", "sum"):
+            if self.accept("keyword", func):
+                self.expect("punct", "(")
+                arg = self.parse_value()
+                self.expect("punct", ")")
+                return Aggregate(func.upper(), arg)
+        if self.at_word("case") and self.at_word("when", 1):
+            return self.parse_case()
+        if self.at_word("extract") and self.peek(1) is not None \
+                and self.peek(1).value == "(":
+            self.i += 1
+            self.expect("punct", "(")
+            field = self.expect("ident").value.upper()
+            self.expect("keyword", "from")
+            column = self.parse_column_ref()
+            self.expect("punct", ")")
+            return Extract(field, column)
+        return self.parse_column_ref()
+
+    def parse_case(self) -> Case:
+        self.expect_word("case")
+        whens = []
+        while self.accept_word("when"):
+            cond = self.parse_or()
+            self.expect_word("then")
+            whens.append((cond, self.parse_value()))
+        default = self.parse_value() if self.accept_word("else") else None
+        self.expect_word("end")
+        return Case(whens, default)
 
     def parse_order_item(self) -> OrderItem:
-        ref = self.parse_column_ref()
+        ref = self.parse_value()
         if self.accept("keyword", "desc"):
             return OrderItem(ref, True)
         self.accept("keyword", "asc")
         return OrderItem(ref)
 
-    def parse_table(self) -> Tuple[str, Optional[str]]:
+    def parse_table(self) -> Union[Tuple[str, Optional[str]], DerivedTable]:
+        if self.accept("punct", "("):
+            stmt = self.parse_select(nested=True)
+            self.expect("punct", ")")
+            self.accept("keyword", "as")
+            return DerivedTable(stmt, self.expect("ident").value)
         name = self.expect("ident").value
         alias = None
         if self.accept("keyword", "as"):
             alias = self.expect("ident").value
-        elif self.peek() and self.peek().kind == "ident":
+        elif (self.peek() and self.peek().kind == "ident"
+              and not self.at_word("limit")):
             alias = self.next().value
         return name, alias
 
@@ -315,7 +477,22 @@ class _Parser:
             return NotOp(self.parse_not())
         return self.parse_primary()
 
+    def at_date(self) -> bool:
+        nxt = self.peek(1)
+        return self.at_word("date") and nxt is not None and nxt.kind == "string"
+
     def parse_literal(self) -> Union[int, float, str]:
+        if self.at_date():
+            self.i += 1
+            days = date_days(self.parse_literal())
+            while (self.at_word("interval", 1)
+                   and self.peek().value in ("+", "-")):
+                sign = 1 if self.next().value == "+" else -1
+                self.i += 1
+                count = self.parse_literal()
+                unit = self.expect("ident").value
+                days = add_interval(days, sign * int(count), unit)
+            return days
         tok = self.next()
         if tok.kind == "number":
             return float(tok.value) if "." in tok.value else int(tok.value)
@@ -359,7 +536,7 @@ class _Parser:
         op_tok = self.expect("op")
         op = "!=" if op_tok.value == "<>" else op_tok.value
         nxt = self.peek()
-        if nxt and nxt.kind == "ident":
+        if nxt and nxt.kind == "ident" and not self.at_date():
             return Compare(op, left, self.parse_column_ref())
         return Compare(op, left, self.parse_literal())
 

@@ -13,6 +13,10 @@ bitmap-based): every comparison, including NEQ/NOT_LIKE, is **false** on a
 NULL value; IS_NULL is true exactly on NULLs; NOT flips the bitmap, so
 ``NOT (x = 5)`` is true for NULL ``x`` (reference src/statement.cpp:8-16).
 
+A comparison's operand is a literal or, as in TPC-H's ``l_shipdate <
+l_commitdate``, another column of the same row (:class:`ColumnOperand`),
+false where either side is NULL.
+
 LIKE compiles ``%``/``_`` to an anchored regex with all regex
 metacharacters escaped; ``.`` does not match newlines (RE2 default in the
 reference, statement.h:118-161 — Python ``re`` matches that default).
@@ -32,7 +36,16 @@ from ..dtypes import DataType, is_null
 from ..storage import native
 from ..storage.columnar import HostTable
 
-Literal = Union[int, float, bytes, None]
+
+@dataclasses.dataclass(frozen=True)
+class ColumnOperand:
+    """A comparison's right operand that is another column of the same
+    row, by its index in the table."""
+
+    column: int
+
+
+Literal = Union[int, float, bytes, None, ColumnOperand]
 
 
 class Op(enum.Enum):
@@ -106,6 +119,15 @@ class Comparison(Statement):
 
     def eval_row(self, row) -> bool:
         v = row[self.column]
+        if isinstance(self.value, ColumnOperand):
+            w = row[self.value.column]
+            if is_null(v) or is_null(w):
+                return False
+            if isinstance(v, str):
+                v = v.encode("latin-1")
+            if isinstance(w, str):
+                w = w.encode("latin-1")
+            return _scalar_cmp(self.op, v, w)
         if self.op is Op.IS_NULL:
             return is_null(v)
         if self.op is Op.IS_NOT_NULL:
@@ -138,6 +160,8 @@ class Comparison(Statement):
             return ~valid
         if self.op is Op.IS_NOT_NULL:
             return valid.copy()
+        if isinstance(self.value, ColumnOperand):
+            return self._eval_columns(col, table.columns[self.value.column])
         if col.dtype is DataType.VARCHAR:
             return self._eval_varchar(col, valid)
         return self._eval_numeric(col, valid)
@@ -159,6 +183,25 @@ class Comparison(Statement):
             rhs = np.int64(lit)
         mask = _vector_cmp(self.op, lhs, rhs)
         return mask & valid
+
+    def _eval_columns(self, col, other) -> np.ndarray:
+        """Column against column, row by row; false where either is
+        NULL."""
+        valid = col.valid & other.valid
+        varchar = (col.dtype is DataType.VARCHAR,
+                   other.dtype is DataType.VARCHAR)
+        if varchar == (True, True):
+            lhs, rhs = col.objects(), other.objects()
+            out = np.zeros(len(valid), dtype=bool)
+            for i in np.nonzero(valid)[0]:
+                out[i] = _scalar_cmp(self.op, lhs[i], rhs[i])
+            return out
+        if any(varchar):
+            return np.zeros(len(valid), dtype=bool)
+        wide = (np.float64 if DataType.FP64 in (col.dtype, other.dtype)
+                else np.int64)
+        return _vector_cmp(self.op, col.values.astype(wide, copy=False),
+                           other.values.astype(wide, copy=False)) & valid
 
     def _eval_varchar(self, col, valid: np.ndarray) -> np.ndarray:
         n = len(valid)
@@ -190,7 +233,12 @@ class Comparison(Statement):
         return out
 
     def pretty(self, indent: int = 0) -> str:
-        v = "" if self.op in (Op.IS_NULL, Op.IS_NOT_NULL) else repr(self.value)
+        if isinstance(self.value, ColumnOperand):
+            v = f"col[{self.value.column}]"
+        elif self.op in (Op.IS_NULL, Op.IS_NOT_NULL):
+            v = ""
+        else:
+            v = repr(self.value)
         return " " * indent + f"col[{self.column}] {self.op.value} {v}"
 
 

@@ -1662,3 +1662,38 @@ def test_cuda_ssb_plan_probes_through_the_kernel(cuda_device):
     specs = plan._fused_struct_cache[1].join_specs.values()
     assert any(s.strategy == "unique_scatter" and s.compact_pad
                for s in specs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q3", "q8"])
+def test_cuda_tpch_sort_join_equals_reference(cuda_device, name,
+                                              monkeypatch):
+    """TPC-H's Q3 and Q8 at scale 0.05 on the card with the sort-based
+    unique join forced (``RJT_UNIQUE_JOIN=sort``): the result equals the
+    benchmark's plain reference by digest, cold and with learned pads,
+    every join below the root takes ``unique_sort`` with its reason, and
+    each node reports its stream time."""
+    from joinbench import digest, pagefmt
+    from joinbench.configs import tpch_sf30 as tpch
+    from joinbench.reference import tpch_sf30 as reference
+
+    monkeypatch.setenv("RJT_UNIQUE_JOIN", "sort")
+    tables = tpch.generate(2 ** 33 + 77, scale=0.05)
+    plan = tpch.build_plans(tables, [name])[name]
+    rel, columns = reference.result(name, tables, "cuda")
+    want = digest.digest(*rel.out(columns))
+    del rel
+    ctx = rt.build_context()
+    for _ in range(2):  # the second run compacts to the learned pads
+        got = digest.digest(*pagefmt.read_columns(rt.execute(plan, ctx),
+                                                  "cpu"))
+        assert got == want and got[0] > 0
+    specs = plan._fused_struct_cache[1].join_specs
+    below = [s for n, s in specs.items() if n != plan.root]
+    assert below and all(s.strategy == "unique_sort"
+                         and s.sort_reason == "knob" for s in below)
+    assert any(s.compact_pad for s in below)
+    stats = plan._last_exec_stats
+    assert set(stats["node_device_ms"]) == set(specs)
+    assert all(stats["node_shapes"][n]["sort_reason"] == "knob"
+               for n, s in specs.items() if s.strategy == "unique_sort")

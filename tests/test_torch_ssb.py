@@ -221,11 +221,15 @@ def test_sort_is_transparent(name):
     assert under["Node Type"] == "Hash Join"
     plans = [port_sql.plan_from_explain(t, _parsed(name), _stub_provider)
              for t in (tree, under, {"Node Type": "Sort",
-                                     "Plans": [copy.deepcopy(under)]})]
-    assert _shape(plans[0]) == _shape(plans[1]) == _shape(plans[2])
+                                     "Plans": [copy.deepcopy(under)]},
+                       {"Node Type": "Limit",
+                        "Plans": [copy.deepcopy(tree)]})]
+    assert (_shape(plans[0]) == _shape(plans[1]) == _shape(plans[2])
+            == _shape(plans[3]))
     with pytest.raises(port_sql.explain.ExplainError,
-                       match="unsupported node type: Limit"):
-        port_sql.plan_from_explain({"Node Type": "Limit", "Plans": [under]},
+                       match="unsupported node type: WindowAgg"):
+        port_sql.plan_from_explain({"Node Type": "WindowAgg",
+                                    "Plans": [under]},
                                    _parsed(name), _stub_provider)
 
 
