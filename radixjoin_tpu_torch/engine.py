@@ -72,7 +72,6 @@ from .storage.columnar import (
     HostColumn,
     HostTable,
     StringDict,
-    gather_varlen,
 )
 
 
@@ -323,24 +322,19 @@ def _decode_host_column(dt: DataType, values: np.ndarray, valid: np.ndarray,
                         dictionary: Optional[StringDict]) -> HostColumn:
     """Fetched device values -> HostColumn: dictionary ids back to strings,
     int64 bit patterns back to FP64. Traced as ``decode.column``."""
-    n = len(valid)
     with trace.span("decode.column") as sp:
         sp.note("dtype", dt.name)
-        sp.note("rows", n)
-        return _decode_values(dt, values, valid, dictionary, n)
+        sp.note("rows", len(valid))
+        if dt is DataType.VARCHAR:
+            sp.note("dict_size", 0 if dictionary is None else dictionary.size)
+        return _decode_values(dt, values, valid, dictionary)
 
 
 def _decode_values(dt: DataType, values: np.ndarray, valid: np.ndarray,
-                   dictionary: Optional[StringDict], n: int) -> HostColumn:
+                   dictionary: Optional[StringDict]) -> HostColumn:
     if dt is DataType.VARCHAR:
         d = dictionary or StringDict.empty()
-        if n == 0 or d.size == 0:
-            return HostColumn.varchar(
-                np.zeros(0, np.uint8), np.zeros(n, np.int64), valid)
-        ids = np.clip(values, 0, d.size - 1)
-        starts = np.where(valid, d.starts[ids], 0)
-        lengths = np.where(valid, d.lengths[ids], 0)
-        heap, ends = gather_varlen(d.heap, starts, lengths)
+        heap, ends = d.decode(values, valid)
         return HostColumn.varchar(heap, ends, valid)
     if dt is DataType.FP64:
         return HostColumn(dt, values.view(np.float64), valid)

@@ -34,7 +34,7 @@ import torch
 from ..dtypes import DataType
 from ..ops import keynorm
 from ..plan.ir import Plan, ScanNode
-from ..storage.columnar import HostColumn, HostTable, StringDict, gather_varlen
+from ..storage.columnar import HostColumn, HostTable, StringDict
 from . import multihost
 from .dist_join import (
     DistJoinConfig,
@@ -402,18 +402,8 @@ def execute_distributed(
             valid = np.asarray(valid_h)[live_np]
         if dt is DataType.VARCHAR:
             d = root.dicts[k] or StringDict.empty()
-            if len(values) == 0 or d.size == 0:
-                cols.append(HostColumn.varchar(
-                    np.zeros(0, np.uint8),
-                    np.zeros(len(values), np.int64),
-                    valid,
-                ))
-            else:
-                ids = np.clip(values, 0, d.size - 1)
-                starts = np.where(valid, d.starts[ids], 0)
-                lengths = np.where(valid, d.lengths[ids], 0)
-                heap, ends = gather_varlen(d.heap, starts, lengths)
-                cols.append(HostColumn.varchar(heap, ends, valid))
+            heap, ends = d.decode(values, valid)
+            cols.append(HostColumn.varchar(heap, ends, valid))
         elif dt is DataType.FP64:
             cols.append(HostColumn(
                 dt, np.asarray(values, np.int64).view(np.float64), valid

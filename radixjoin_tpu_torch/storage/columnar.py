@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import trace
 from ..dtypes import NULL, DataType, PAGE_SIZE, is_null
 from . import device_decode
 from . import host_pool
@@ -80,6 +81,14 @@ def heap_to_objects(heap: np.ndarray, ends: np.ndarray, valid: np.ndarray):
     return out
 
 
+#: the root decode of dictionary VARCHAR columns (:meth:`StringDict.decode`):
+#: columns decoded (``varchar_columns``), their rows (``varchar_rows``), and
+#: those decoded by NumPy because the native library is unavailable
+#: (``numpy_fallbacks``; 0 wherever g++ built it)
+DECODE_STATS = trace.Counters(
+    "decode", ("varchar_columns", "varchar_rows", "numpy_fallbacks"))
+
+
 @dataclasses.dataclass
 class StringDict:
     """Sorted distinct string values (dictionary for device-side VARCHAR)."""
@@ -102,6 +111,26 @@ class StringDict:
     @property
     def lengths(self) -> np.ndarray:
         return np.diff(self.ends, prepend=0)
+
+    def decode(self, ids: np.ndarray, valid: np.ndarray):
+        """The strings that ``ids`` name, as ``(heap, ends)`` of one row per
+        id: each id clipped to ``[0, size - 1]``, an invalid row (and every
+        row of an empty dictionary) the empty string. Reads only the
+        entries the ids name, so its work follows the rows, not the
+        dictionary. Counted in :data:`DECODE_STATS`."""
+        n = len(valid)
+        DECODE_STATS.add("varchar_columns")
+        DECODE_STATS.add("varchar_rows", n)
+        if n == 0 or self.size == 0:
+            return np.zeros(0, np.uint8), np.zeros(n, np.int64)
+        out = _native.dict_decode(self.heap, self.ends, ids, valid)
+        if out is not None:
+            return out
+        DECODE_STATS.add("numpy_fallbacks")
+        ids = np.clip(ids, 0, self.size - 1)
+        starts = np.where(ids > 0, self.ends[ids - 1], 0)
+        lengths = np.where(valid, self.ends[ids] - starts, 0)
+        return gather_varlen(self.heap, starts, lengths)
 
     def objects(self) -> np.ndarray:
         if self._objects is None:

@@ -31,6 +31,7 @@ _lib_failed = False
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_I32 = np.iinfo(np.int32)
 
 
 def _ptr(arr: np.ndarray, typ):
@@ -46,7 +47,7 @@ def _build() -> Optional[ctypes.CDLL]:
         tmp = so_path + f".tmp{os.getpid()}"
         cmd = [
             "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-            _SRC, "-o", tmp,
+            "-pthread", _SRC, "-o", tmp,
         ]
         try:
             subprocess.run(cmd, check=True, capture_output=True)
@@ -90,6 +91,14 @@ def _build() -> Optional[ctypes.CDLL]:
     lib.rjt_gather_varlen.restype = None
     lib.rjt_gather_varlen.argtypes = [
         _u8p, _i64p, _i64p, ctypes.c_int64, _i64p, _u8p,
+    ]
+    lib.rjt_dict_decode_ends.restype = ctypes.c_int64
+    lib.rjt_dict_decode_ends.argtypes = [
+        _i64p, ctypes.c_int64, _i32p, _u8p, ctypes.c_int64, _i64p,
+    ]
+    lib.rjt_dict_decode_fill.restype = None
+    lib.rjt_dict_decode_fill.argtypes = [
+        _u8p, _i64p, ctypes.c_int64, _i32p, _i64p, ctypes.c_int64, _u8p,
     ]
     lib.rjt_like.restype = None
     lib.rjt_like.argtypes = [
@@ -219,6 +228,39 @@ def gather_varlen(heap, starts, lengths, new_ends, total: int):
         ctypes.c_int64(len(lengths)), _ptr(new_ends, _i64p), _ptr(out, _u8p),
     )
     return out
+
+
+def dict_decode(heap, ends, ids, valid):
+    """The strings that dictionary ``ids`` name, as ``(heap, ends)``: each id
+    clipped to the dictionary, an invalid row empty (see
+    ``StringDict.decode``). Two passes over the rows, a large column's cut
+    into parts on up to four threads; nothing scales with the dictionary.
+    None when the native lib is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    heap = np.ascontiguousarray(heap, dtype=np.uint8)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    if ids.dtype != np.int32:  # the device column's ids are int32 already
+        # saturate to int32; the C passes clip to the dictionary
+        ids = np.clip(ids, _I32.min, _I32.max).astype(np.int32)
+    ids = np.ascontiguousarray(ids)
+    v8 = np.ascontiguousarray(valid, dtype=bool).view(np.uint8)
+    n = len(v8)
+    if len(ids) != n:
+        raise ValueError(f"dict_decode: {len(ids)} ids for {n} rows")
+    out_ends = np.empty(n, dtype=np.int64)
+    total = L.rjt_dict_decode_ends(
+        _ptr(ends, _i64p), len(ends), _ptr(ids, _i32p), _ptr(v8, _u8p), n,
+        _ptr(out_ends, _i64p),
+    )
+    out = np.empty(total, dtype=np.uint8)
+    if total:
+        L.rjt_dict_decode_fill(
+            _ptr(heap, _u8p), _ptr(ends, _i64p), len(ends), _ptr(ids, _i32p),
+            _ptr(out_ends, _i64p), n, _ptr(out, _u8p),
+        )
+    return out, out_ends
 
 
 def encode_varchar(heap: np.ndarray, ends: np.ndarray, valid: np.ndarray):

@@ -12,12 +12,16 @@
 // All functions are thread-safe on distinct outputs; callers may decode
 // columns in parallel.
 
+#include <sched.h>
+
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
 #include <string>
 #include <string_view>
+#include <system_error>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -43,6 +47,89 @@ inline bool get_bit(const uint8_t* bitmap, int64_t i) {
 
 inline void set_bit(uint8_t* bitmap, int64_t i) {
     bitmap[i >> 3] |= static_cast<uint8_t>(1u << (i & 7));
+}
+
+// Dictionary decode: the strings that int32 `ids` name in a dictionary of
+// `dict_size` entries (`dict_heap`, `dict_ends` cumulative), each id clipped
+// to [0, dict_size - 1]; an invalid row, and every row of an empty
+// dictionary, is the empty string. Both passes read only the entries the
+// ids name. The rows are cut into up to kDecodeParts parts of at least
+// kDecodeRowsPerPart rows, each on a thread of its own (the caller's thread
+// takes the first): a thread costs 0.2-0.3 ms to start on the card's host
+// against 10-80 ns a row, so smaller parts would not pay for it.
+constexpr int kDecodeParts = 4;
+constexpr int64_t kDecodeRowsPerPart = int64_t{1} << 16;
+
+// The CPUs this process may run on (its affinity mask, not the machine's
+// count; a cgroup's CPU quota is not read), asked of the system once.
+int64_t allowed_cpus() {
+    static const int64_t cpus = [] {
+        cpu_set_t set;
+        if (sched_getaffinity(0, sizeof(set), &set) == 0) {
+            return std::max<int64_t>(1, CPU_COUNT(&set));
+        }
+        return std::max<int64_t>(1, std::thread::hardware_concurrency());
+    }();
+    return cpus;
+}
+
+int decode_parts(int64_t n) {
+    const int64_t parts = std::min(n / kDecodeRowsPerPart, int64_t{kDecodeParts});
+    if (parts <= 1) return 1;
+    return static_cast<int>(std::min(parts, allowed_cpus()));
+}
+
+int64_t part_begin(int64_t n, int parts, int t) { return n * t / parts; }
+
+// fn(t) for each part t; a thread that cannot be started runs inline
+template <class Fn>
+void run_parts(int parts, const Fn& fn) {
+    std::vector<std::thread> threads;
+    for (int t = 1; t < parts; ++t) {
+        try {
+            threads.emplace_back(fn, t);
+        } catch (const std::system_error&) {
+            fn(t);
+        }
+    }
+    fn(0);
+    for (auto& th : threads) th.join();
+}
+
+// Rows [begin, end) of pass 1: their lengths summed from 0 into
+// `out_ends`; returns the sum. Ids are clipped to [0, last].
+int64_t dict_decode_ends_part(const int64_t* dict_ends, int64_t last,
+                              const int32_t* ids, const uint8_t* valid,
+                              int64_t begin, int64_t end, int64_t* out_ends) {
+    int64_t sum = 0;
+    for (int64_t i = begin; i < end; ++i) {
+        const int64_t id = std::min<int64_t>(std::max<int64_t>(ids[i], 0), last);
+        // the load's index is in range either way, so no branch is needed
+        const int64_t start = id > 0 ? dict_ends[id > 0 ? id - 1 : 0] : 0;
+        sum += (dict_ends[id] - start) & -static_cast<int64_t>(valid[i] != 0);
+        out_ends[i] = sum;
+    }
+    return sum;
+}
+
+// Rows [begin, end) of pass 2: each string copied to `out` after the
+// `offset` bytes of the parts before, and `offset` added to its end.
+void dict_decode_fill_part(const uint8_t* dict_heap, const int64_t* dict_ends,
+                           int64_t last, const int32_t* ids, int64_t begin,
+                           int64_t end, int64_t offset, int64_t* out_ends,
+                           uint8_t* out) {
+    int64_t prev = 0;
+    for (int64_t i = begin; i < end; ++i) {
+        const int64_t local = out_ends[i];
+        const int64_t len = local - prev;
+        if (len > 0) {
+            const int64_t id = std::min<int64_t>(std::max<int64_t>(ids[i], 0), last);
+            memcpy(out + offset + prev, dict_heap + (id ? dict_ends[id - 1] : 0),
+                   static_cast<size_t>(len));
+        }
+        prev = local;
+        out_ends[i] = local + offset;
+    }
 }
 
 }  // namespace
@@ -268,6 +355,48 @@ void rjt_gather_varlen(const uint8_t* heap, const int64_t* starts,
         if (len > 0) memcpy(out + out_ends[i] - len, heap + starts[i],
                             static_cast<size_t>(len));
     }
+}
+
+// Dictionary decode (parts and threads: see decode_parts above).
+
+// Pass 1: each row's length, summed within its part into `out_ends`;
+// returns the total. `out_ends` holds the end offsets once pass 2 has run.
+int64_t rjt_dict_decode_ends(const int64_t* dict_ends, int64_t dict_size,
+                             const int32_t* ids, const uint8_t* valid,
+                             int64_t n, int64_t* out_ends) {
+    if (dict_size <= 0) {
+        std::fill(out_ends, out_ends + n, int64_t{0});
+        return 0;
+    }
+    const int parts = decode_parts(n);
+    std::vector<int64_t> totals(parts, 0);
+    run_parts(parts, [&](int t) {
+        totals[t] = dict_decode_ends_part(
+            dict_ends, dict_size - 1, ids, valid, part_begin(n, parts, t),
+            part_begin(n, parts, t + 1), out_ends);
+    });
+    int64_t total = 0;
+    for (const int64_t part : totals) total += part;
+    return total;
+}
+
+// Pass 2: copy each row's string into `out` and make `out_ends` the running
+// sum over all rows; a row of length 0 reads nothing.
+void rjt_dict_decode_fill(const uint8_t* dict_heap, const int64_t* dict_ends,
+                          int64_t dict_size, const int32_t* ids,
+                          int64_t* out_ends, int64_t n, uint8_t* out) {
+    if (dict_size <= 0) return;
+    const int parts = decode_parts(n);
+    std::vector<int64_t> offsets(parts, 0);
+    for (int t = 1; t < parts; ++t) {  // no part is empty
+        offsets[t] = offsets[t - 1] + out_ends[part_begin(n, parts, t) - 1];
+    }
+    run_parts(parts, [&](int t) {
+        dict_decode_fill_part(dict_heap, dict_ends, dict_size - 1, ids,
+                              part_begin(n, parts, t),
+                              part_begin(n, parts, t + 1), offsets[t],
+                              out_ends, out);
+    });
 }
 
 int64_t rjt_encode_varchar(const uint8_t* heap, const int64_t* ends,
